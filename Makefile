@@ -3,7 +3,7 @@
 
 PY ?= python
 
-.PHONY: all native install test test-fast bench bench-table demos \
+.PHONY: all native install test test-fast bench smoke bench-table demos \
         lint release clean
 
 all: native
@@ -29,6 +29,10 @@ test-fast:
 bench:
 	$(PY) bench.py
 
+# The main path on one NVIDIA GPU, checked against float64.
+smoke:
+	$(PY) chip_smoke.py
+
 # Cross-algorithm table.
 bench-table:
 	$(PY) -m fftlab.cli.benchmark
@@ -43,8 +47,8 @@ demos:
 # this image ships no pyflakes/cppcheck, so the Python leg is the AST
 # linter in scripts/lint.py and the C++ leg is g++'s analyzer pass).
 lint:
-	$(PY) -m compileall -q fftlab tests scripts bench.py __graft_entry__.py
-	$(PY) scripts/lint.py fftlab tests scripts bench.py __graft_entry__.py quickstart.py
+	$(PY) -m compileall -q fftlab tests scripts bench.py chip_smoke.py __graft_entry__.py
+	$(PY) scripts/lint.py fftlab tests scripts bench.py chip_smoke.py __graft_entry__.py quickstart.py
 	g++ -std=c++17 -fsyntax-only -Wall -Wextra -Wpedantic native/*.cpp
 
 # Release packaging (reference Makefile:246-252 analog): sdist + wheel

@@ -10,18 +10,14 @@ Run: python examples/minimal.py
 import numpy as np
 
 try:
-    from fftlab.utils.compat import prefer_cpu_for_complex
+    import fftlab
 except ImportError:  # fresh checkout without the editable install
     import os
     import sys
 
     sys.path.insert(
         0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    from fftlab.utils.compat import prefer_cpu_for_complex  # noqa: E402
-
-prefer_cpu_for_complex()
-
-import fftlab  # noqa: E402
+    import fftlab  # noqa: E402
 
 N = 8
 

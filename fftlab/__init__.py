@@ -1,10 +1,10 @@
-"""fftlab — a TPU-native FFT + spectral-DSP framework in JAX/Pallas.
+"""fftlab — an FFT + spectral-DSP framework in JAX.
 
 A from-scratch re-design (NOT a port) of the capabilities of the reference
 C library `muditbhargava66/FFT-implementation-in-C`:
 
 - 8 FFT algorithm families + 2 reference DFTs (reference: algorithms/),
-  re-designed around the TPU MXU: mixed-radix Cooley-Tukey where every
+  re-designed around matrix units: mixed-radix Cooley-Tukey where every
   stage is a batched matmul against a small DFT matrix with fused twiddles.
 - An FFTW-style auto-selection / planning layer with flags, measurement
   ("wisdom"), aligned allocation semantics (reference: algorithms/auto/).
@@ -47,13 +47,6 @@ from fftlab.algos.split_stockham import (
     from_split,
 )
 from fftlab.plan.dispatch import fft_split_auto, select_split_impl
-from fftlab.kernels.fourstep_vmem import (
-    fft_split_large,
-    rfft_split_large,
-    irfft_split_large,
-    spectral_filter_large,
-)
-from fftlab.kernels.threestep_vmem import fft_split_huge
 
 __version__ = "0.4.0"
 
@@ -88,9 +81,4 @@ __all__ = [
     "FilterPlan",
     "fft_split_auto",
     "select_split_impl",
-    "fft_split_large",
-    "rfft_split_large",
-    "irfft_split_large",
-    "spectral_filter_large",
-    "fft_split_huge",
 ]

@@ -1,8 +1,8 @@
 """FFT algorithm families.
 
 Every transform has the uniform batch-first signature
-``fn(x, direction=FORWARD) -> [..., n]`` over the last axis, the TPU-native
-analog of the reference's uniform C signature
+``fn(x, direction=FORWARD) -> [..., n]`` over the last axis, the analog
+of the reference's uniform C signature
 ``void algo(complex_t* x, int n, fft_direction dir)`` (fft_algorithms.h:12-38).
 
 Scaling convention (matches the reference): forward unscaled, inverse 1/n.
@@ -55,14 +55,8 @@ def build_registry() -> dict:
         AlgoSpec("mixed_radix", mixed_radix.mixed_radix_fft, _any_size, "general factorization"),
         AlgoSpec("recursive", recursive.recursive_fft, _pow2, "educational divide&conquer"),
         AlgoSpec("iterative", iterative.iterative_fft, _pow2, "annotated pedagogical DIT"),
-        AlgoSpec("stockham_mxu", stockham.stockham_fft, stockham.supports, "flagship MXU mixed-radix"),
+        AlgoSpec("stockham_mxu", stockham.stockham_fft, stockham.supports, "flagship matmul mixed-radix"),
     ]
-    from fftlab.kernels.fft_vmem import pallas_fft, supported_size
-
-    specs.append(AlgoSpec(
-        "pallas_vmem", pallas_fft, supported_size,
-        "single-VMEM-residency four-step Pallas kernel (n = m*128)",
-    ))
     from fftlab.dist.four_step import four_step_fft
 
     def _composite(n: int) -> bool:

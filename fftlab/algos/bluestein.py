@@ -1,6 +1,6 @@
 """Bluestein / chirp-z FFT for arbitrary transform sizes.
 
-TPU-native analog of reference algorithms/core/bluestein.c:79-148, with the
+The analog of reference algorithms/core/bluestein.c:79-148, with the
 key planning improvement SURVEY.md §3.3 calls out: the chirp sequence AND
 the FFT of the convolution kernel are plan-time constants (computed host-
 side in float64, cached per (n, direction)), so each execution costs only
@@ -30,7 +30,7 @@ from fftlab.core.types import Direction, FORWARD, next_power_of_two
 def bluestein_fft(x, direction=FORWARD, pow2_fft=None):
     """Arbitrary-n FFT via chirp-z. `pow2_fft(x, direction)` is the internal
     unscaled power-of-two transform (default: the radix-2 kernel; the planner
-    substitutes the MXU Stockham path for large m)."""
+    substitutes the matmul Stockham path for large m)."""
     x, n, direction = prepare(x, direction)
     if n == 1:
         return x
@@ -84,11 +84,9 @@ def _kernel_planes_np(n: int, m: int, direction: int, dtype_str: str):
 def _conv_sandwich_split(ar, ai, Br, Bi, m: int, permuted=None):
     """The Bluestein circular convolution IFFT_m(FFT_m(a) * B), 1/m
     scaled — which is exactly the spectral-filter sandwich, routed by
-    the shared dispatcher (plan.dispatch.spectral_filter_auto): fused
-    VMEM kernels on TPU for supported m (one/four HBM passes instead of
-    the einsum path's ~12), the zero-transpose fused einsum sandwich
-    elsewhere. B's bin order only matters inside the multiply, so the
-    digit-reversed form applies unchanged."""
+    the shared dispatcher (plan.dispatch.spectral_filter_auto): the
+    zero-transpose fused einsum sandwich. B's bin order only matters
+    inside the multiply, so the digit-reversed form applies unchanged."""
     from fftlab.plan.dispatch import spectral_filter_auto
 
     return spectral_filter_auto(ar, ai, Br, Bi, permuted=permuted)
@@ -96,13 +94,12 @@ def _conv_sandwich_split(ar, ai, Br, Bi, m: int, permuted=None):
 
 def bluestein_fft_split(xr, xi, direction=FORWARD):
     """Arbitrary-n chirp-z FFT on split re/im planes — no complex dtype
-    anywhere, so prime/odd sizes work on complex-less TPU runtimes.
+    anywhere.
 
     Same plan-time constants as `bluestein_fft` (chirp + kernel spectrum
     in float64), with the internal power-of-two convolution routed
-    through the fused spectral-filter sandwich (`_conv_sandwich_split`)
-    — on TPU that means prime sizes up to ~2M points ride the large
-    VMEM kernels. Forward unscaled / inverse 1/n.
+    through the fused spectral-filter sandwich (`_conv_sandwich_split`).
+    Forward unscaled / inverse 1/n.
     """
     from fftlab.algos.split_stockham import _twiddle_split
 

@@ -1,16 +1,17 @@
 """Small-N DFT codelets for the mixed-radix path.
 
-TPU-native analog of the reference's hand-coded strided DFT-2/3/5 kernels
+The analog of the reference's hand-coded strided DFT-2/3/5 kernels
 (mixed_radix.c:67-104) and the general prime-factor DFT (mixed_radix.c:107-124).
 
 Each codelet transforms axis -2 of a `[..., p, m]` tensor (p = radix,
-m = stride count), vectorized over everything else — one VPU pass of the
-explicit minimal-operation formula, or one MXU matmul for general p.
+m = stride count), vectorized over everything else — one elementwise pass
+of the explicit minimal-operation formula, or one matmul for general p.
 Direction enters through `s = i*direction` (the reference's `dir` sign).
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -67,14 +68,16 @@ def dft5(x, direction):
 
 
 def dft_general(x, p: int, direction):
-    """General radix-p DFT over axis -2 as one MXU matmul against the p x p
-    DFT matrix (mixed_radix.c:107-124, but systolic instead of O(p^2) scalar)."""
+    """General radix-p DFT over axis -2 as one matmul against the p x p
+    DFT matrix (mixed_radix.c:107-124, but one contraction instead of
+    O(p^2) scalar loops)."""
     F = const(dft_matrix_np(p, Direction(int(direction))), x)
-    return jnp.einsum("ap,...pm->...am", F, x)
+    return jnp.einsum("ap,...pm->...am", F, x,
+                      precision=jax.lax.Precision.HIGHEST)
 
 
 def apply_codelet(x, p: int, direction):
-    """Dispatch: explicit minimal-op codelet for p in {2,3,5}, MXU matmul
+    """Dispatch: explicit minimal-op codelet for p in {2,3,5}, matmul
     otherwise. x: [..., p, m]."""
     if p == 2:
         return dft2(x, direction)

@@ -1,13 +1,13 @@
 """Reference DFTs: the O(n^2) correctness oracle and the cached-twiddle
 variant, plus a Goertzel single-bin evaluator.
 
-TPU-native analog of reference algorithms/dft/naive_dft.c:55-97 and
+The analog of reference algorithms/dft/naive_dft.c:55-97 and
 optimized_dft.c:29-163 + goertzel_single_bin (optimized_dft.c:106-126).
 
-On TPU the "naive" O(n^2) DFT is simply a matmul against the full DFT
-matrix — which is exactly what the MXU is built for, so for small/medium n
-this oracle is *also* a fast path (the planner uses it as the leaf codelet
-via stockham.py). `naive_dft` is the ground-truth oracle the whole test
+The "naive" O(n^2) DFT is simply a matmul against the full DFT matrix,
+so for small/medium n this oracle is *also* a fast path (stockham.py
+uses the same matmul as its leaf codelet). Every contraction runs at
+Precision.HIGHEST: a GPU would otherwise be free to use TF32. `naive_dft` is the ground-truth oracle the whole test
 matrix compares against, mirroring tests/test_all.c:58.
 """
 
@@ -21,6 +21,8 @@ from fftlab.algos._common import const, inverse_scale, prepare
 from fftlab.core.twiddle import dft_matrix_np
 from fftlab.core.types import Direction, FORWARD, as_complex_array, real_dtype_for
 
+_PRECISION = jax.lax.Precision.HIGHEST
+
 
 def naive_dft(x, direction=FORWARD):
     """Textbook O(n^2) DFT: X[k] = sum_j x[j] * exp(2*pi*i*dir*j*k/n).
@@ -29,7 +31,7 @@ def naive_dft(x, direction=FORWARD):
     """
     x, n, direction = prepare(x, direction)
     F = const(dft_matrix_np(n, direction), x)
-    y = jnp.einsum("...j,jk->...k", x, F)
+    y = jnp.einsum("...j,jk->...k", x, F, precision=_PRECISION)
     return inverse_scale(y, n, direction)
 
 
@@ -39,14 +41,14 @@ def optimized_dft(x, direction=FORWARD):
     (optimized_dft.c:29-163: full twiddle cache + X[n-k]=conj(X[k]) symmetry
     for real inputs.) For complex input this is the same matmul as
     `naive_dft`; for real input only n/2+1 output bins are computed and the
-    rest mirrored by Hermitian symmetry — half the MXU work.
+    rest mirrored by Hermitian symmetry — half the matmul work.
     """
     xin = jnp.asarray(x)
     if np.dtype(xin.dtype).kind != "c":
         return _real_input_dft(xin, direction)
     x, n, direction = prepare(x, direction)
     F = const(dft_matrix_np(n, direction), x)
-    y = jnp.einsum("...j,jk->...k", x, F)
+    y = jnp.einsum("...j,jk->...k", x, F, precision=_PRECISION)
     return inverse_scale(y, n, direction)
 
 
@@ -55,7 +57,8 @@ def _real_input_dft(x, direction):
     x, n, direction = prepare(x, direction)
     h = n // 2 + 1
     F = const(dft_matrix_np(n, direction)[:, :h], x)
-    half = jnp.einsum("...j,jk->...k", x, F)  # bins 0..n/2
+    half = jnp.einsum("...j,jk->...k", x, F,
+                      precision=_PRECISION)  # bins 0..n/2
     if n > 1:
         mirror = jnp.conj(half[..., 1 : n - h + 1][..., ::-1])
         y = jnp.concatenate([half, mirror], axis=-1)
@@ -99,7 +102,8 @@ def dft_bin(x, k, direction=FORWARD):
     n = int(x.shape[-1])
     j = np.arange(n, dtype=np.int64)
     row = np.exp(2j * np.pi * float(int(Direction(int(direction)))) * np.mod(j * int(k), n) / n)
-    return inverse_scale(jnp.einsum("...j,j->...", x, const(row, x)),
+    return inverse_scale(jnp.einsum("...j,j->...", x, const(row, x),
+                                    precision=_PRECISION),
                          n, direction)
 
 

@@ -1,6 +1,6 @@
 """2D FFT by row-column decomposition, plus fftshift.
 
-TPU-native analog of reference applications/image_fft.c:35-96. The
+The analog of reference applications/image_fft.c:35-96. The
 reference's column pass is a strided gather/scatter per column
 (image_fft.c:46-61); here both passes are batched transforms over the last
 axis with one transpose between — the transpose is a single tiled HBM op

@@ -1,6 +1,6 @@
 """Pedagogical iterative FFT with an execution-plan explainer.
 
-TPU-native analog of reference algorithms/core/iterative_fft.c:57-175 —
+The analog of reference algorithms/core/iterative_fft.c:57-175 —
 the same MATH as radix-2 DIT, realized through the other compilation
 strategy: radix2_dit unrolls log2(n) stages into a fixed reshape/concat
 pipeline at trace time; this module keeps the classic IN-PLACE
@@ -82,9 +82,9 @@ def explain(n: int) -> str:
             f"one fused VPU pass over [{n // m}, {m}] view, {m // 2} twiddles W_{m}^j"
         )
     lines.append(
-        "  on TPU: ONE lax.fori_loop body serves all stages (partner =\n"
+        "  on device: ONE lax.fori_loop body serves all stages (partner =\n"
         "  i XOR m/2, twiddle exponent = j*n/m — dynamic indices over a\n"
-        "  static [n] layout); the 'cache' is VMEM and XLA fuses the\n"
+        "  static [n] layout); XLA fuses the\n"
         "  gather + select + multiply chain into one pass per stage."
     )
     return "\n".join(lines)

@@ -1,23 +1,26 @@
-"""Reduced-precision FFT experiments — the TPU analog of the reference's
+"""Reduced-precision FFT experiments — the analog of the reference's
 fixed-point track (optimizations/fixed_point_fft.c).
 
 The reference trades precision for speed with Q15 int16 + block scaling;
-on TPU the equivalent knobs are the MXU input precision (bf16 passes) and
-table storage dtype. This module exposes the spectrum of choices and
-measures what each costs in SNR — the Q15 C++ oracle
-(fftlab.native.q15) anchors the low end.
+here the equivalent knob is the precision of the float32 contractions on
+the split-Stockham path. This module exposes the choices and measures
+what each costs in SNR — the Q15 C++ oracle (fftlab.native.q15) anchors
+the low end.
 
-Modes (matmul precision on the split-Stockham path):
-  'f32'    HIGHEST — 6 bf16 passes, ~137 dB SNR at 1M pts (default)
-  'f32x3'  HIGH    — 3 bf16 passes, ~92 dB (fails the 100 dB gate; fine
-                     for audio/display pipelines)
-  'bf16'   DEFAULT — 1 bf16 pass, ~48 dB (the Q15-class regime: Q15
-                     block-float measures ~30 dB)
+Modes (what each runs on an NVIDIA GPU; the CPU runs all of them in
+float32, except the TF32 preset, which XLA's CPU backend refuses):
+  'f32'     Precision.HIGHEST — float32 products outside the tensor
+            cores (default)
+  'tf32'    Precision.DEFAULT — one TF32 pass on the tensor cores
+            (10-bit mantissa inputs); Precision.HIGH is the same on
+            this card
+  'tf32x3'  DotAlgorithmPreset.TF32_TF32_F32_X3 — three TF32 passes
+            (hi/lo split), close to float32
+  'bf16x3'  DotAlgorithmPreset.BF16_BF16_F32_X3 — three bf16 passes
+            (8-bit mantissa inputs)
 
 Block scaling (fixed_point_fft.c:169-178 per-stage >>1) is unnecessary
-in floating point — the exponent IS the block scale — so the TPU mapping
-of "block-floating-point" is simply bf16's shared-exponent-free format;
-the experiment quantifies that equivalence.
+in floating point — the exponent IS the block scale.
 """
 
 from __future__ import annotations
@@ -30,18 +33,18 @@ from fftlab.core.types import FORWARD
 
 _PRECISIONS = {
     "f32": jax.lax.Precision.HIGHEST,
-    "f32x3": jax.lax.Precision.HIGH,
-    "bf16": jax.lax.Precision.DEFAULT,
+    "tf32": jax.lax.Precision.DEFAULT,
+    "tf32x3": jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3,
+    "bf16x3": jax.lax.DotAlgorithmPreset.BF16_BF16_F32_X3,
 }
 
 
 def fft_split_lowprec(xr, xi, direction=FORWARD, mode: str = "f32",
                       leaf: int = 128):
-    """Split-complex FFT at a chosen MXU precision mode.
+    """Split-complex FFT at a chosen contraction precision mode.
 
-    Default 'f32' = Precision.HIGHEST (the module header's table; this
-    TPU requires it for the 100 dB gate) — the reduced modes are
-    explicit opt-ins."""
+    Default 'f32' = Precision.HIGHEST, the precision every public
+    transform uses — the reduced modes are explicit opt-ins."""
     if mode not in _PRECISIONS:
         raise ValueError(f"mode must be one of {sorted(_PRECISIONS)}")
     from fftlab.algos.split_stockham import fft_split
@@ -51,7 +54,7 @@ def fft_split_lowprec(xr, xi, direction=FORWARD, mode: str = "f32",
 
 
 def snr_vs_oracle(n: int = 4096, batch: int = 2, seed: int = 0,
-                  modes=("f32", "f32x3", "bf16")) -> dict:
+                  modes=("f32", "tf32", "bf16x3")) -> dict:
     """Measure each mode's SNR against the float64 numpy oracle.
 
     Returns {mode: snr_db}; include the Q15 native oracle as 'q15' when

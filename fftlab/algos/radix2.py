@@ -1,6 +1,6 @@
 """Radix-2 Cooley-Tukey: decimation-in-time and decimation-in-frequency.
 
-TPU-native analog of reference algorithms/core/radix2_dit.c:59-138 and
+The analog of reference algorithms/core/radix2_dit.c:59-138 and
 radix2_dif.c:15-51 — but vectorized for the VPU instead of the reference's
 scalar butterfly triple-loop (radix2_dit.c:84-112):
 
@@ -13,7 +13,7 @@ scalar butterfly triple-loop (radix2_dit.c:84-112):
 - n is static under jit, so the stage loop is a Python loop that unrolls
   into a fixed compiled pipeline.
 
-For the flagship MXU-based path see algos/stockham.py; this family is the
+For the flagship matmul-based path see algos/stockham.py; this family is the
 faithful radix-2 capability (and stays useful for odd shapes and tests).
 """
 

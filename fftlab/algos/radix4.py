@@ -5,15 +5,16 @@ The reference exposes a radix-4 API but executes plain radix-2 butterflies
 implements the real thing: base-4 digit-reversal permutation, then
 log4(n) stages of true 4-point butterflies — the 4x4 DFT matrix
 [1 1 1 1; 1 -j -1 j; 1 -1 1 -1; 1 j -1 -j] the reference only demos
-(radix4.c:50-66) is here the per-stage MXU contraction.
+(radix4.c:50-66) is here the per-stage matmul contraction.
 
-Radix-4 does ~25% fewer multiplies than radix-2 (radix4.c:191-212); on TPU
-the win is fewer stages -> fewer whole-array passes (HBM traffic), which is
-what actually matters on a bandwidth-bound transform.
+Radix-4 does ~25% fewer multiplies than radix-2 (radix4.c:191-212); on an
+accelerator the win is fewer stages -> fewer whole-array passes (memory
+traffic), which is what actually matters on a bandwidth-bound transform.
 """
 
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
 
 from fftlab.algos._common import const, inverse_scale, prepare
@@ -43,8 +44,9 @@ def radix4_fft(x, direction=FORWARD):
         # Twiddle W_m^{p*j} applied to quarter p, position j (DIT twiddles).
         tw = const(stage_twiddle_np(4, q, direction), x)  # [4, q]
         t = x * tw
-        # True 4-point butterfly across the quarter axis (MXU contraction).
-        x = jnp.einsum("ap,...pj->...aj", const(F4, x), t)
+        # True 4-point butterfly across the quarter axis (one contraction).
+        x = jnp.einsum("ap,...pj->...aj", const(F4, x), t,
+                       precision=jax.lax.Precision.HIGHEST)
     x = x.reshape(*batch, n)
     return inverse_scale(x, n, direction)
 

@@ -1,6 +1,6 @@
 """Educational recursive (out-of-place) radix-2 FFT.
 
-TPU-native analog of reference algorithms/core/recursive_fft.c:16-62 —
+The analog of reference algorithms/core/recursive_fft.c:16-62 —
 the textbook even/odd divide-and-conquer, kept for pedagogy and as an
 independent implementation in the correctness matrix. The recursion
 unrolls at trace time (n is static); `print_recursion_tree` mirrors the

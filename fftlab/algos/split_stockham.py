@@ -1,23 +1,24 @@
-"""Split re/im (structure-of-arrays) MXU FFT — the TPU fast path.
+"""Split re/im (structure-of-arrays) Stockham FFT — the device path.
 
-TPUs have no native complex registers, and this environment's TPU backend
-rejects complex dtypes outright — so the flagship path carries complex
-data as two real float32 arrays, exactly the layout the reference's SIMD
-track chose (simd_fft.c:92-109, split re/im SoA) and SURVEY.md §7 mandates.
+Complex data is carried as two real float32 arrays, the layout the
+reference's SIMD track chose (simd_fft.c:92-109, split re/im SoA).
 
 Same algorithm as algos/stockham.py (mixed-radix digit decomposition, one
-MXU matmul per stage, digit-reversal as a single final transpose), with
+matmul per stage, digit-reversal as a single final transpose), with
 every complex operation expanded into real arithmetic:
 
 - stage contraction: (yr + i·yi) = (xr + i·xi) @ (Fr + i·Fi)^T becomes
-  four real einsums (MXU) at HIGHEST precision — TPU f32 matmuls default
-  to bf16 passes, which would cost ~60 dB of SNR on a 1M-point transform.
-- twiddle multiply: one fused VPU complex multiply on real planes.
+  four real einsums at Precision.HIGHEST. On the GPU a float32 matmul
+  without a stated precision may run in TF32 (10-bit mantissa), which
+  costs some 60 dB of SNR on a 1M-point transform; HIGHEST keeps it in
+  float32.
+- twiddle multiply: one fused elementwise complex multiply on real
+  planes.
 
-The default leaf is 128 (not 1024 as on the complex/CPU path): per-stage
-flops are 8·n·r while HBM traffic is ~3 passes of the array per stage, so
-r ≈ 128 balances MXU flops against bandwidth on v5e-class chips — the
-roofline sweet spot (SURVEY.md §6 derived target).
+The default leaf is 128 (not 1024 as on the complex path): per-stage
+flops are 8·n·r, so a smaller radix does less arithmetic per pass at the
+cost of more passes. Measured leaf wisdom (plan/split_tuning.py)
+overrides it per size on the running device.
 """
 
 from __future__ import annotations
@@ -60,7 +61,8 @@ def _tables(r: int, direction: Direction, dtype):
 
 
 def _contract_split(xr, xi, Fr, Fi, axis_from_end: int, precision=None):
-    """Complex contraction of one digit axis, expanded to real einsums."""
+    """Complex contraction of one digit axis, expanded to real einsums
+    (at HIGHEST unless the caller passes a precision)."""
     if axis_from_end == 0:
         eq = "...a,ba->...b"
     else:
@@ -74,7 +76,7 @@ def _contract_split(xr, xi, Fr, Fi, axis_from_end: int, precision=None):
 
 
 def _twiddle_split(xr, xi, twr, twi):
-    """(x) *= (twr + i*twi), real planes (fused VPU multiply-add)."""
+    """(x) *= (twr + i*twi), real planes (fused elementwise multiply-add)."""
     yr = xr * twr - xi * twi
     yi = xr * twi + xi * twr
     return yr, yi
@@ -85,7 +87,7 @@ def stockham_fft_split_unscaled(xr, xi, direction=FORWARD,
                                 precision=None):
     """Forward/backward transform on split planes, no inverse scaling.
 
-    `precision` overrides the MXU matmul precision (default HIGHEST;
+    `precision` overrides the matmul precision (default HIGHEST;
     see algos/lowprec.py for the accuracy/speed trade)."""
     xr = jnp.asarray(xr)
     xi = jnp.asarray(xi)
@@ -135,7 +137,7 @@ def fft_split(xr, xi, direction=FORWARD, leaf: int = DEFAULT_LEAF_SPLIT,
     from fftlab.algos.stockham import max_prime_factor
 
     if n > 1 and max_prime_factor(n) > leaf:
-        # Prime factor beyond the MXU leaf: chirp-z territory
+        # Prime factor beyond the leaf: chirp-z territory
         # (mirrors the planner's routing, fft_auto.c:136-172 semantics).
         from fftlab.algos.bluestein import bluestein_fft_split
 
@@ -160,13 +162,11 @@ def rfft_split(x, leaf: int = DEFAULT_LEAF_SPLIT, cfft=None):
     The Hermitian unpack is PAIRED when m = n/2 is even: bins k and m-k
     are emitted together from one E[k], W[k]*O[k] computation, so the
     half-size spectrum Z is read once instead of twice (natural +
-    conj-reversed) and every intermediate is m/2-sized — on TPU this
-    halves the unpack's HBM traffic, the dominant cost above the
-    half-size transform itself.
+    conj-reversed) and every intermediate is m/2-sized — half the
+    unpack's memory traffic.
 
     `cfft(re, im) -> (re, im)` overrides the half-size complex transform
-    (e.g. kernels/fourstep_vmem.fft_split_large for huge n)."""
-    cfft_default = cfft is None
+    (e.g. a dispatch route, as plan_r2c_1d_split passes)."""
     if cfft is None:
         cfft = lambda a, b: fft_split(a, b, FORWARD, leaf)
     x = jnp.asarray(x)
@@ -175,39 +175,6 @@ def rfft_split(x, leaf: int = DEFAULT_LEAF_SPLIT, cfft=None):
     if n % 2 or n < 4:
         zr, zi = fft_split(x, jnp.zeros_like(x), FORWARD, leaf)
         return zr[..., :h], zi[..., :h]
-    import jax
-
-    if jax.default_backend() == "tpu":
-        import os
-
-        from fftlab.kernels.rfft_vmem import (
-            pack_supported,
-            pallas_hermitian_unpack,
-            pallas_pack_real,
-        )
-        from fftlab.plan.dispatch import kernels_enabled
-
-        if cfft_default and kernels_enabled() \
-                and os.environ.get("FFTLAB_RFFT_FUSED", "1") != "0":
-            from fftlab.kernels.rfft_resident import (
-                rfft_resident,
-                supported_rfft_resident,
-            )
-
-            if supported_rfft_resident(n):
-                # ONE-residency fused r2c (pack + half c2c + Hermitian
-                # unpack in a single kernel) — the three-program
-                # pipeline below pays ~5 residencies for the same
-                # work. FFTLAB_RFFT_FUSED=0 opts out.
-                return rfft_resident(x)
-        if pack_supported(n) and kernels_enabled():
-            # XLA's stride-2 deinterleave and lane-reversing unpack are
-            # lane-gather class on this TPU (rfft probe r3: 18-98 ms +
-            # 47 ms at 8 x 2M vs ~0.5 ms copy floors); the MXU
-            # permutation-matmul kernels replace both.
-            zr_in, zi_in = pallas_pack_real(x)
-            Zr, Zi = cfft(zr_in, zi_in)
-            return pallas_hermitian_unpack(Zr, Zi, n)
     zr_in, zi_in = x[..., 0::2], x[..., 1::2]
     Zr, Zi = cfft(zr_in, zi_in)
     m = n // 2
@@ -263,32 +230,13 @@ def irfft_split(Xr, Xi, n: int | None = None,
 
     `cfft(re, im) -> (re, im)` overrides the half-size INVERSE complex
     transform (must apply the usual 1/(n/2) inverse normalization, e.g.
-    a kernels/fourstep_vmem.fft_split_large INVERSE closure for huge n).
+    an INVERSE dispatch route, as plan_c2r_1d_split passes).
     """
     Xr = jnp.asarray(Xr)
     Xi = jnp.asarray(Xi)
     h = int(Xr.shape[-1])
     if n is None:
         n = 2 * (h - 1)
-    import jax as _jax
-
-    if (_jax.default_backend() == "tpu" and cfft is None
-            and n == 2 * (h - 1)):
-        import os
-
-        from fftlab.plan.dispatch import kernels_enabled
-
-        if kernels_enabled() \
-                and os.environ.get("FFTLAB_RFFT_FUSED", "1") != "0":
-            from fftlab.kernels.rfft_resident import (
-                irfft_resident,
-                supported_rfft_resident,
-            )
-
-            if supported_rfft_resident(n):
-                # ONE-residency fused c2r (Hermitian repack + half
-                # inverse c2c + interleave in a single kernel).
-                return irfft_resident(Xr, Xi)
     if n % 2 or n < 4:
         tr = Xr[..., 1 : n - h + 1][..., ::-1]
         ti = -Xi[..., 1 : n - h + 1][..., ::-1]
@@ -338,16 +286,6 @@ def irfft_split(Xr, Xi, n: int | None = None,
     if cfft is None:
         cfft = lambda a, b: fft_split(a, b, Direction.INVERSE, leaf)
     zr, zi = cfft(Zr, Zi)
-    import jax
-
-    if jax.default_backend() == "tpu":
-        from fftlab.kernels.rfft_vmem import pack_supported, pallas_interleave
-        from fftlab.plan.dispatch import kernels_enabled
-
-        if pack_supported(n) and kernels_enabled():
-            # MXU selection-matmul interleave (the XLA stack+reshape is
-            # lane-gather class on this TPU; rfft probe r3: ~10 ms).
-            return pallas_interleave(zr, zi)
     out = jnp.stack([zr, zi], axis=-1)
     return out.reshape(*out.shape[:-2], n)
 
@@ -509,26 +447,20 @@ def spectral_filter_split_fused(xr, xi, hr, hi,
 
 
 def fft2_split(xr, xi, direction=FORWARD, leaf: int = DEFAULT_LEAF_SPLIT,
-               route: bool | None = None):
+               route: bool = False):
     """2D FFT on split planes over the last two axes (row-column
     decomposition, fft2d.py semantics without complex dtypes).
 
     `route=True` sends each axis's batched 1D transforms through the
-    capability dispatch (plan/dispatch.fft_split_auto), so large image
-    sides run on the VMEM kernels on TPU; default on for TPU. Every
-    route uses the same forward-unscaled / inverse-1/n convention, so
-    the per-axis inverse scalings compose to 1/(rows*cols)."""
+    capability dispatch (plan/dispatch.fft_split_auto), which applies
+    measured leaf wisdom per side; the default runs `leaf` directly.
+    Every route uses the same forward-unscaled / inverse-1/n
+    convention, so the per-axis inverse scalings compose to
+    1/(rows*cols)."""
     direction = Direction(int(direction))
     xr = jnp.asarray(xr)
     xi = jnp.asarray(xi)
     rows, cols = int(xr.shape[-2]), int(xr.shape[-1])
-    if route is None:
-        from fftlab.plan.dispatch import kernels_enabled
-
-        # The dispatch path uses the default MXU leaf; a caller-chosen
-        # leaf must stay on the direct path to be honored.
-        route = (jax.default_backend() == "tpu" and kernels_enabled()
-                 and leaf == DEFAULT_LEAF_SPLIT)
     if route:
         from fftlab.plan.dispatch import fft_split_auto
 

@@ -1,15 +1,15 @@
-"""Flagship TPU fast path: self-sorting mixed-radix FFT where every stage
-is a batched MXU matmul.
+"""Flagship complex path: self-sorting mixed-radix FFT where every stage
+is a batched matmul.
 
-This is the TPU-first re-design of the reference's hot loop (the radix-2
-butterfly triple-loop, radix2_dit.c:84-112) and of its four-step
-factorization (parallel_fft.c:213-272), fused into one scheme:
+This is a re-design of the reference's hot loop (the radix-2 butterfly
+triple-loop, radix2_dit.c:84-112) and of its four-step factorization
+(parallel_fft.c:213-272), fused into one scheme:
 
-- n is factored into MXU-sized radices (default <= 1024 each, e.g.
+- n is factored into radices (default <= 1024 each, e.g.
   2^20 -> 1024 x 1024). Each stage contracts one digit axis with the
-  full radix-r DFT matrix — a dense matmul the 128x128 systolic array
-  executes at near-peak — then applies the inter-stage twiddles as one
-  fused VPU multiply.
+  full radix-r DFT matrix — one dense matmul, at Precision.HIGHEST so a
+  GPU keeps it in float32 rather than TF32 — then applies the
+  inter-stage twiddles as one fused elementwise multiply.
 - There is NO bit-reversal scatter anywhere (SURVEY.md §7 design stance):
   the digit permutation is absorbed into a single final transpose, which
   XLA lowers to an efficient tiled HBM transpose.
@@ -17,8 +17,8 @@ factorization (parallel_fft.c:213-272), fused into one scheme:
   (core/twiddle.py), cached per (n, direction).
 
 Cost model (1M points, factors 1024x1024): 2 matmul passes of
-8*n*1024 flops each + 1 transpose ≈ compute/bandwidth balanced on v5e —
-vs 20 bandwidth-bound butterfly passes for literal radix-2. Arbitrary
+8*n*1024 flops each + 1 transpose, vs 20 bandwidth-bound butterfly
+passes for literal radix-2. Arbitrary
 composite n works too (factors grouped from the prime factorization);
 large-prime n belongs to Bluestein (the planner routes it there, and
 Bluestein itself uses THIS transform for its internal power-of-two FFTs).
@@ -36,6 +36,7 @@ from __future__ import annotations
 import functools
 import string
 
+import jax
 import jax.numpy as jnp
 
 from fftlab.algos._common import const, inverse_scale, prepare
@@ -43,6 +44,8 @@ from fftlab.core.twiddle import dft_matrix_np, stage_twiddle_np
 from fftlab.core.types import FORWARD, is_power_of_two
 
 DEFAULT_LEAF = 1024
+
+_PRECISION = jax.lax.Precision.HIGHEST
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,7 +57,7 @@ def max_prime_factor(n: int) -> int:
 
 @functools.lru_cache(maxsize=None)
 def plan_factors(n: int, leaf: int = DEFAULT_LEAF) -> tuple[int, ...]:
-    """Factor n into MXU-friendly radices, each <= leaf.
+    """Factor n into matmul-sized radices, each <= leaf.
 
     Powers of two split into near-equal power-of-two radices (2^20 ->
     1024*1024, 2^14 -> 128*128); general composites greedily group prime
@@ -96,9 +99,10 @@ def _contract_digit(x, F, axis_from_end: int):
     axis_from_end: 0 = last axis, 1 = second-to-last, ...
     """
     if axis_from_end == 0:
-        return jnp.einsum("...a,ba->...b", x, F)
+        return jnp.einsum("...a,ba->...b", x, F, precision=_PRECISION)
     tail = string.ascii_lowercase[2 : 2 + axis_from_end]
-    return jnp.einsum(f"...a{tail},ba->...b{tail}", x, F)
+    return jnp.einsum(f"...a{tail},ba->...b{tail}", x, F,
+                      precision=_PRECISION)
 
 
 def stockham_fft_unscaled(x, direction=FORWARD, leaf: int = DEFAULT_LEAF):
@@ -130,7 +134,7 @@ def stockham_fft_unscaled(x, direction=FORWARD, leaf: int = DEFAULT_LEAF):
 
 
 def stockham_fft(x, direction=FORWARD, leaf: int = DEFAULT_LEAF):
-    """Flagship mixed-radix MXU FFT (any n whose prime factors are <= leaf)."""
+    """Flagship mixed-radix matmul FFT (any n whose prime factors are <= leaf)."""
     x, n, direction = prepare(x, direction)
     y = stockham_fft_unscaled(x, direction, leaf)
     return inverse_scale(y, n, direction)

@@ -1,12 +1,13 @@
 """Benchmark harness with accuracy gates and roofline accounting.
 
-TPU-native analog of benchmarks/benchmark_all.c: warm-up run then timed
-iterations (:119-131, here with async dispatch + one sync to amortize
-host<->device link latency), max/RMS error vs a reference transform
-(:79-91), round-trip reconstruction gate (:152-157), size-scaled
-iteration counts (:274-279), and empirical complexity-exponent estimation
-(:240-266) — plus what the reference lacks: roofline accounting (achieved
-fraction of the 5*n*log2(n) FLOP model and of HBM bandwidth).
+The analog of benchmarks/benchmark_all.c: warm-up run then timed
+iterations (:119-131, here with async dispatch + one block_until_ready
+per repeat), max/RMS error vs a reference transform (:79-91), round-trip
+reconstruction gate (:152-157), size-scaled iteration counts (:274-279),
+and empirical complexity-exponent estimation (:240-266) — plus what the
+reference lacks: roofline accounting (achieved fraction of the
+5*n*log2(n) FLOP model and of memory bandwidth, against peaks the caller
+supplies for its device).
 """
 
 from __future__ import annotations
@@ -39,11 +40,9 @@ def _iters_for(n: int) -> int:
 
 
 def time_fn(fn, args, iters: int, repeats: int = 3) -> float:
-    """Median seconds/iteration; pipelined dispatch, one sync per repeat.
-
-    Inputs are perturbed per iteration: the device runtime memoizes
-    repeated identical computations, which would fake the timing.
-    """
+    """Median seconds/iteration; pipelined dispatch, one
+    block_until_ready per repeat. Inputs are perturbed per iteration so
+    that no call can reuse another's result."""
     import jax
     import jax.numpy as jnp
 
@@ -55,9 +54,6 @@ def time_fn(fn, args, iters: int, repeats: int = 3) -> float:
     jax.block_until_ready(fn(*tuple(perturb(a, -1) for a in args)))  # warm
     times = []
     for r in range(repeats):
-        # FRESH argsets every repeat — re-running the same arrays would
-        # hit the memoization this docstring warns about, and the
-        # median would pick a fake-fast repeat.
         argsets = [tuple(perturb(a, r * iters + i) for a in args)
                    for i in range(iters)]
         jax.block_until_ready(argsets)
@@ -136,13 +132,14 @@ def complexity_exponent(results: list[BenchResult]) -> float:
     return float(np.polyfit(ln, lt, 1)[0])
 
 
-def roofline(n: int, batch: int, sec: float,
-             peak_flops: float = 45e12, hbm_gbps: float = 819.0,
-             dtype_bytes: int = 8, passes: float = 3.0) -> dict:
+def roofline(n: int, batch: int, sec: float, *, peak_flops: float,
+             hbm_gbps: float, dtype_bytes: int = 8,
+             passes: float = 3.0) -> dict:
     """Achieved fraction of compute and bandwidth rooflines.
 
-    Default peaks are v5e-class (f32 MXU ~45 TFLOP/s, HBM ~819 GB/s);
-    `passes` = HBM round trips of the array the algorithm makes.
+    `peak_flops` and `hbm_gbps` are the device's peaks, which the caller
+    supplies (no device is assumed); `passes` = memory round trips of
+    the array the algorithm makes.
     """
     total = batch * n
     eff_flops = 5.0 * total * np.log2(max(n, 2)) / sec

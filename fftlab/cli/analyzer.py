@@ -14,9 +14,9 @@ import numpy as np
 
 
 def main() -> None:
-    from fftlab.utils.compat import prefer_cpu_for_complex
+    from fftlab.utils.compile_cache import enable_compile_cache
 
-    prefer_cpu_for_complex()
+    enable_compile_cache()
     from fftlab.algos.real_fft import rfftfreq
     from fftlab.dsp.analyzer import AnalyzerConfig, RealtimeAnalyzer
     from fftlab.utils.plotting import ansi_clear, ascii_spectrum

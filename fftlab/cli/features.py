@@ -11,9 +11,9 @@ import numpy as np
 
 
 def main() -> None:
-    from fftlab.utils.compat import prefer_cpu_for_complex
+    from fftlab.utils.compile_cache import enable_compile_cache
 
-    prefer_cpu_for_complex()
+    enable_compile_cache()
     import jax
 
     from fftlab import fft, plan_dft_1d
@@ -78,9 +78,9 @@ def main() -> None:
     print("\nMemory access by stage (iterative_fft.c:101-133 analog):")
     print(memory_access_trace(1 << 14))
     t = simulate_tile_touches(1 << 20)
-    print(f"\nVMEM-tile touch model at n=2^20: DIT {t['dit_tile_touches']} "
+    print(f"\ntile touch model at n=2^20: DIT {t['dit_tile_touches']} "
           f"vs Stockham {t['stockham_tile_touches']} "
-          f"({t['ratio']:.2f}x) — why the TPU path is Stockham")
+          f"({t['ratio']:.2f}x) — why the device path is Stockham")
 
 
 if __name__ == "__main__":

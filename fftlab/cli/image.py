@@ -12,9 +12,9 @@ import numpy as np
 
 
 def main() -> None:
-    from fftlab.utils.compat import prefer_cpu_for_complex
+    from fftlab.utils.compile_cache import enable_compile_cache
 
-    prefer_cpu_for_complex()
+    enable_compile_cache()
     from fftlab.dsp.image import (
         detect_edges,
         generate_2d_gaussian,

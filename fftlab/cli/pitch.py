@@ -11,9 +11,9 @@ import argparse
 
 
 def main() -> None:
-    from fftlab.utils.compat import prefer_cpu_for_complex
+    from fftlab.utils.compile_cache import enable_compile_cache
 
-    prefer_cpu_for_complex()
+    enable_compile_cache()
     from fftlab.dsp.pitch import detect_pitch
     from fftlab.utils.signals import generate_multi_tone
 

@@ -2,7 +2,7 @@
 
 The full production chain: the native C++ WAV reader feeds the native
 lock-free ring buffer; chunks drain through a FilterPlan stream (exact
-continuity across chunks; the fused Pallas overlap-save kernel on TPU);
+continuity across chunks);
 the filtered audio is written back as PCM16 WAV by the native writer.
 
 Usage:
@@ -24,6 +24,9 @@ import numpy as np
 
 
 def main() -> None:
+    from fftlab.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     from fftlab.dsp.filtering import FilterParams, FilterType
     from fftlab.native.ring import RingBuffer
     from fftlab.native.wav import read_wav, write_wav

@@ -1,5 +1,5 @@
 """Core runtime: types, twiddle tables, permutations, windows.
 
-TPU-native analog of the reference's common runtime layer
+The analog of the reference's common runtime layer
 (reference: include/fft_common.h, utils/fft_utils.c).
 """

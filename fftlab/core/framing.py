@@ -1,22 +1,21 @@
-"""Overlapping-frame construction with a per-backend strategy.
+"""Overlapping-frame construction with a selectable strategy.
 
 Every streaming pipeline (overlap-save, STFT, Welch) needs the view
-frames[k] = x[k*hop : k*hop + frame_size]. Three implementations exist,
-and which ones COMPILE differs by backend (all measured on this
-project's TPU service):
+frames[k] = x[k*hop : k*hop + frame_size]. Three implementations exist;
+all three are exact copies of the input samples:
 
-- ``gather``  jnp fancy-index gather — compiles everywhere; on TPU the
-              elementwise gather is slow (~10x the FFTs it feeds) but it
-              is the only strategy this TPU service's compiler accepts.
+- ``gather``  jnp fancy-index gather.
 - ``patches`` `lax.conv_general_dilated_patches` — XLA's native sliding
-              window; fast on CPU/GPU; hangs this TPU service's compile.
-- ``slices``  hop-block reshape + shifted-slice concat; fast on CPU;
-              also hangs this TPU service's compile.
+              window, a convolution against one-hot filters. It runs at
+              Precision.HIGHEST: at a lower precision a GPU is free to
+              use TF32, which would round samples to a 10-bit mantissa.
+- ``slices``  hop-block reshape + shifted-slice concat.
 
-Default: patches off-TPU, gather on TPU. Override with
-``FFTLAB_FRAMING={gather,patches,slices}``. The truly fast TPU framing
-is DMA inside a Pallas kernel (kernels/stft_vmem.py does exactly that
-for the STFT, 8.7x the gather path).
+Default: ``slices``, the fastest of the three on an NVIDIA H100 (700 W):
+framing 2^22 samples at 2048/512 took 0.20 ms against 0.28 ms for
+``gather`` and 7.6 ms for ``patches``; 2^23 samples at 1024/896 took
+0.22, 0.34 and 2.5 ms. Override with
+``FFTLAB_FRAMING={gather,patches,slices}``.
 """
 
 from __future__ import annotations
@@ -30,6 +29,7 @@ import jax.numpy as jnp
 
 
 _STRATEGIES = ("gather", "patches", "slices")
+DEFAULT_STRATEGY = "slices"
 
 
 def _strategy() -> str:
@@ -40,11 +40,7 @@ def _strategy() -> str:
                 f"FFTLAB_FRAMING={env!r}; want one of {_STRATEGIES}"
             )
         return env
-    try:
-        platform = jax.default_backend()
-    except Exception:
-        platform = "cpu"
-    return "gather" if platform == "tpu" else "patches"
+    return DEFAULT_STRATEGY
 
 
 def _pad_to(x, need: int):
@@ -72,6 +68,7 @@ def _frames_patches(x, frame_size, hop, n_frames):
         filter_shape=[frame_size],
         window_strides=[hop],
         padding="VALID",
+        precision=jax.lax.Precision.HIGHEST,
     )  # (B, frame_size, n_frames)
     out = jnp.swapaxes(patches, -1, -2)
     return out.reshape(*batch, n_frames, frame_size)

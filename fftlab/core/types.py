@@ -1,15 +1,14 @@
 """Core types and small integer/shape helpers.
 
-TPU-native analog of the reference's `include/fft_common.h` (complex type,
+The analog of the reference's `include/fft_common.h` (complex type,
 direction enum, power-of-two predicates, bit-reversal; fft_common.h:28-77).
 
-Design notes (TPU-first):
+Design notes:
 - Complex data is carried as native JAX complex dtypes (`complex64` by
-  default; `complex128` on CPU for oracle/parity runs). XLA decomposes
-  complex arithmetic into real MXU/VPU ops. The Pallas fast path
-  additionally uses a split re/im structure-of-arrays layout
-  (`SplitComplex`) because TPU vector memory wants (8,128) real tiles —
-  the same layout the reference's SIMD track chose (simd_fft.c:92-109).
+  default; `complex128` on CPU for oracle/parity runs). The split-plane
+  path additionally uses a split re/im structure-of-arrays layout
+  (`SplitComplex`) — the same layout the reference's SIMD track chose
+  (simd_fft.c:92-109).
 - All shape/size analysis happens at trace time on Python ints; nothing
   here introduces dynamic shapes under `jit`.
 """
@@ -39,8 +38,7 @@ INVERSE = Direction.INVERSE
 class SplitComplex(NamedTuple):
     """Structure-of-arrays complex: two real arrays of identical shape.
 
-    This is the layout used inside Pallas kernels (TPU has no native
-    complex registers; split re/im keeps both planes (8,128)-tileable).
+    This is the layout of the split-plane path (algos/split_stockham.py).
     """
 
     re: jnp.ndarray

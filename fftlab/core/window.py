@@ -1,6 +1,6 @@
 """Window functions for spectral analysis.
 
-TPU-native analog of the reference's window set: Hann/Hamming/Blackman
+The analog of the reference's window set: Hann/Hamming/Blackman
 (audio_spectrum.c:37-57, power_spectrum.c:5-25), Tukey (fft_utils.c:60-74),
 and a REAL Kaiser window (the reference's Kaiser is a stub returning 1.0,
 fft_utils.c:49-58 — implemented correctly here via the I0 Bessel series).

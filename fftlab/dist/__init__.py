@@ -1,20 +1,20 @@
 """Distributed execution over a `jax.sharding.Mesh`.
 
 The reference is single-node (SURVEY.md §2.2: pthreads/OpenMP only,
-no MPI/NCCL anywhere). This package is its multi-chip TPU re-design:
+no MPI/NCCL anywhere). This package is its multi-device re-design:
 
 - ``mesh``         mesh construction + sharding helpers (the comm backend)
-- ``four_step``    one large transform sharded across chips with an
-                   ``all_to_all`` transpose over ICI (TP analog of the
+- ``four_step``    one large transform sharded across devices with an
+                   ``all_to_all`` transpose (TP analog of the
                    reference four-step FFT, parallel_fft.c:213-272)
 - ``overlap_save`` streaming FIR filtering with time-blocks sharded across
-                   chips and ``ppermute`` halo exchange (SP/ring analog)
+                   devices and ``ppermute`` halo exchange (SP/ring analog)
 - ``welch``        Welch PSD with segments sharded and ``psum`` averaging
                    (DP analog of power_spectrum.c:88-130)
 - ``stft``         frame-sharded STFT spectral pipelines
 - ``tp_pipeline``  gather-free sharded FFT -> H -> IFFT (TP end to end)
 - ``pp_pipeline``  stage-pipelined streaming sandwich: window/FFT/xH/IFFT
-                   each on its own chip, blocks flowing via ``ppermute``
+                   each on its own device, blocks flowing via ``ppermute``
                    (PP analog; the EP analog is ``overlap_save``'s
                    filterbank form — each channel shard applies its own
                    expert taps)

@@ -1,7 +1,7 @@
 """2D FFT distributed over BOTH axes of a 2D device mesh.
 
 `dist.fft2_sharded` (pencil decomposition) shards rows and runs each
-1D pass locally — fine while a full row/column fits one chip. This
+1D pass locally — fine while a full row/column fits one device. This
 module removes that limit: the image is BLOCK-sharded over a 2D mesh
 (rows over one axis, columns over the other), and each 1D pass is
 itself a four-step distributed transform (dist.four_step_split with
@@ -15,7 +15,7 @@ sharded batch dims):
             `r_axis`
 
 No device ever holds more than its block; all collectives ride the
-mesh axes (ICI). Split re/im planes throughout (complex-free).
+mesh axes. Split re/im planes throughout (complex-free).
 
 Reference anchor: the row-column 2D decomposition image_fft.c:35-72
 with BOTH loops replaced by the four-step of parallel_fft.c:213-272,

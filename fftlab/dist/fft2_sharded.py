@@ -23,10 +23,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from fftlab.algos.split_stockham import stockham_fft_split_unscaled
 from fftlab.core.types import Direction, FORWARD
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 @functools.partial(

@@ -1,12 +1,12 @@
 """Four-step FFT: one large transform decomposed as n = n1*n2 and sharded
-across chips with an ``all_to_all`` transpose over ICI.
+across devices with an ``all_to_all`` transpose over the mesh axis.
 
-TPU-native re-design of the reference's OpenMP four-step FFT
+A re-design of the reference's OpenMP four-step FFT
 (parallel_fft.c:213-272): column FFTs -> twiddle W_n^{ij} -> row FFTs ->
 transpose. There the "transpose into temp" (parallel_fft.c:263-271) moves
 data between cores through shared memory; here it is `lax.all_to_all`
-moving shards between chips over ICI, and the per-thread loop bodies are
-full MXU transforms (algos/stockham.py).
+moving shards between devices, and the per-thread loop bodies are
+full matmul transforms (algos/stockham.py).
 
 Derivation: with j = j1 + n1*j2 and k = k2 + n2*k1,
     X[k2 + n2*k1] = sum_{j1} W_{n1}^{j1 k1} * W_n^{j1 k2}
@@ -14,7 +14,7 @@ Derivation: with j = j1 + n1*j2 and k = k2 + n2*k1,
 so on B[j2, j1] = x.reshape(n2, n1):
     1. FFT_{n2} over axis j2            (local: j1 is the sharded axis)
     2. multiply by W_n^{j1*k2}          (local; per-shard twiddle slice)
-    3. re-shard j1-sharded -> k2-sharded (all_to_all = the ICI transpose)
+    3. re-shard j1-sharded -> k2-sharded (all_to_all = the transpose)
     4. FFT_{n1} over axis j1            (local: k2 is now the sharded axis)
     5. output matrix Y[k1, k2] = result^T; X = Y.reshape(n)
 
@@ -40,10 +40,7 @@ from fftlab.core.types import (
     real_dtype_for,
 )
 
-try:  # JAX >= 0.4.35 exposes shard_map at the top level
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def split_n(n: int, n1: int | None = None) -> tuple[int, int]:
@@ -132,7 +129,7 @@ def _four_step_sharded_impl(x, *, direction: Direction, n1: int,
             n1_local, n2, n, idx * n1_local, direction, cdtype
         )  # (n2, n1/p)
         c = c * jnp.swapaxes(tw, -1, -2).astype(cdtype)
-        # 3. the ICI transpose: re-shard from j1 to k2.
+        # 3. the all_to_all transpose: re-shard from j1 to k2.
         #    global C is [..., n1, n2] sharded on axis -2; after all_to_all
         #    it is sharded on axis -1: local [..., n1, n2/p].
         c = jax.lax.all_to_all(
@@ -158,7 +155,7 @@ def four_step_fft_sharded(x, mesh: Mesh, axis_name: str = "tp",
                           direction=FORWARD, n1: int | None = None,
                           flatten: bool = True):
     """One large FFT sharded over `mesh[axis_name]` with an all_to_all
-    transpose over ICI (TP: SURVEY.md §2.2 four-step row).
+    transpose over the mesh axis (TP: SURVEY.md §2.2 four-step row).
 
     x: [..., n] (replicated or last-axis sharded). Returns the spectrum as
     [..., n] if `flatten` (XLA gathers as needed), else the [..., n1, n2]

@@ -1,6 +1,5 @@
-"""Four-step sharded FFT on split re/im planes — the variant that runs
-on complex-less TPU runtimes (this environment's backend rejects complex
-dtypes; a multi-chip deployment of it would too).
+"""Four-step sharded FFT on split re/im planes — the variant for callers
+that keep real and imaginary parts in separate float32 arrays.
 
 Same math and collectives as dist/four_step.py with every complex value
 carried as two real arrays: the all_to_all moves both planes, and the
@@ -20,10 +19,7 @@ from fftlab.algos.split_stockham import stockham_fft_split_unscaled
 from fftlab.core.types import Direction, FORWARD
 from fftlab.dist.four_step import split_n
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _twiddle_cs(n1_local: int, n2: int, n: int, j1_offset,
@@ -81,7 +77,7 @@ def _impl(xr, xi, *, direction: Direction, n1: int, axis_name: str,
             # Comm/compute overlap: the column stage is independent per
             # local-row slab, so K unrolled chunks give the scheduler K
             # all_to_alls each overlappable with the NEXT chunk's column
-            # FFT (async collectives on real ICI; the four-step
+            # FFT (async collectives on real devices; the four-step
             # transpose of parallel_fft.c:263-271, pipelined). The final
             # row FFT needs every chunk, so it stays a barrier.
             rows = n1_local // chunks
@@ -138,7 +134,7 @@ def four_step_fft_sharded_split(xr, xi, mesh: Mesh, axis_name: str = "tp",
 
     `chunks=K` pipelines the column stage: K independent
     column-FFT+twiddle+all_to_all slabs let the scheduler overlap each
-    chunk's ICI transfer with the next chunk's compute (at the price of
+    chunk's transfer with the next chunk's compute (at the price of
     one local re-stack before the row FFT). Numerics are identical;
     K must divide n1/p. Default 1 = the single-collective form.
 

@@ -1,11 +1,11 @@
 """Device mesh construction and sharding helpers.
 
-This is the framework's "communication backend" — the TPU-native
-replacement for the reference's pthreads/OpenMP intra-node parallelism
+This is the framework's "communication backend" — the replacement for
+the reference's pthreads/OpenMP intra-node parallelism
 (parallel_fft.c:130-210, fft_openmp.c:18-53) and for the inter-node
-backend the reference never had (SURVEY.md §5). Collectives ride ICI
-within a slice and DCN across hosts; the mesh axis names used throughout
-the package are:
+backend the reference never had (SURVEY.md §5). Collectives run over the
+named axes of a `jax.sharding.Mesh` of devices; the mesh is shaped by the
+algorithm, and the axis names used throughout the package are:
 
 - ``"dp"``  batch / channel sharding (pure data parallel)
 - ``"sp"``  sequence (time-block) sharding for overlap-save/STFT
@@ -49,7 +49,7 @@ def make_mesh(shape: dict[str, int] | tuple, axis_names=None, devices=None) -> M
 
 def shard_batch(x, mesh: Mesh, axis_name: str = "x", batch_axis: int = 0):
     """Place `x` with its batch axis sharded over `axis_name` (pure DP —
-    the TPU-native replacement for the reference's serial batched-GPU loop,
+    the replacement for the reference's serial batched-GPU loop,
     fft_gpu.c:366-374)."""
     spec = [None] * x.ndim
     spec[batch_axis] = axis_name

@@ -2,10 +2,9 @@
 
 The reference has NO distributed backend (SURVEY.md §5 — pthreads/OpenMP
 only). This module is the jax.distributed glue for running fftlab across
-TPU pod hosts: each host calls `initialize()` (standard JAX multi-host
-contract), then every `dist/` collective pipeline works unchanged — mesh
-axes laid out so `all_to_all`/`ppermute` ride ICI within a slice and DCN
-across hosts.
+several hosts: each host calls `initialize()` (standard JAX multi-host
+contract), then every `dist/` collective pipeline works unchanged over a
+mesh that spans the devices of all processes.
 
 Single-host (including this environment) is a no-op fast path, so all
 code can call `ensure_initialized()` unconditionally.
@@ -49,9 +48,10 @@ def ensure_initialized(coordinator_address: str | None = None,
 
 
 def host_local_mesh_axes() -> dict:
-    """Recommended axis layout for a pod slice: put the halo-exchange
-    axis ('sp') innermost over ICI neighbors, DP across hosts (DCN
-    carries only gradient-free batch splits; SURVEY.md §2.2)."""
+    """Recommended axis layout across hosts: the halo-exchange axis
+    ('sp') over the devices of one host, DP across hosts (the
+    cross-host link carries only independent batch splits;
+    SURVEY.md §2.2)."""
     n_local = jax.local_device_count()
     n_total = jax.device_count()
     hosts = max(n_total // max(n_local, 1), 1)

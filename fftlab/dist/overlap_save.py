@@ -1,12 +1,12 @@
 """Sharded streaming FIR filtering: overlap-save with time-blocks sharded
-across chips and a ``ppermute`` halo exchange.
+across devices and a ``ppermute`` halo exchange.
 
-TPU-native re-design of the reference's streaming block processing
+A re-design of the reference's streaming block processing
 (realtime_analyzer.c:58-93 hop loop; convolution.c:284-290 overlap-add
 description): the signal's time axis is split into contiguous chunks, one
 per device; each device needs the (L-1) samples preceding its chunk to
-compute valid outputs — the halo — which its left neighbor sends over ICI
-with one `ppermute` (the ring/neighbor-exchange pattern, SURVEY.md §2.2
+compute valid outputs — the halo — which its left neighbor sends with one
+`ppermute` (the ring/neighbor-exchange pattern, SURVEY.md §2.2
 "SP/CP/ring"). Device 0's halo is zeros (causal linear filtering).
 
 After the halo exchange each device runs an ordinary batched overlap-save
@@ -33,10 +33,7 @@ from fftlab.core.types import (
     next_power_of_two,
 )
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _cfft_fwd(x):
@@ -136,8 +133,8 @@ def overlap_save_filterbank_sharded(x, h_bank, mesh: Mesh,
                                     time_axis: str = "sp",
                                     fft_size: int | None = None):
     """Multi-channel filterbank: channels sharded over `channel_axis` (DP),
-    time sharded over `time_axis` (SP) — the flagship multi-chip pipeline
-    (BASELINE.json config 5).
+    time sharded over `time_axis` (SP) — the flagship multi-device
+    pipeline.
 
     x: [channels, n]; h_bank: [channels, nh] per-channel taps.
     """

@@ -1,10 +1,10 @@
 """Sharded overlap-save filtering on split re/im planes (complex-free).
 
-The production TPU variant of dist/overlap_save.py. The split signal
+The split-plane variant of dist/overlap_save.py. The split signal
 pair doubles as a two-for-one channel packer: a REAL frequency response
 is Hermitian, so filtering commutes with Re/Im extraction — pack two
 real channels as (xr, xi) and both come out filtered independently
-(dsp/filtering.fft_filter_split documents the same trick single-chip).
+(dsp/filtering.fft_filter_split documents the same trick on one device).
 """
 
 from __future__ import annotations
@@ -21,10 +21,7 @@ from fftlab.algos.split_stockham import (
 )
 from fftlab.core.types import Direction, next_power_of_two
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _local_os_split(xr, xi, Hr, Hi, chunk: int, nh: int, fft_size: int):

@@ -6,20 +6,20 @@ hand-offs.
 This is the PP analog SURVEY.md §2.2 names ("stage-pipelined streaming
 filterbank"): the reference's only streaming pipeline is one core's hop
 loop (realtime_analyzer.c:58-93, window -> FFT -> average in sequence on
-one CPU); here each stage runs on its own chip, so block t is windowed
-on chip 0 while block t-1 is transformed on chip 1, block t-2 is
-multiplied by H on chip 2, and block t-3 is inverse-transformed on
-chip 3 — a GPipe-style schedule over ICI neighbors.
+one CPU); here each stage runs on its own device, so block t is windowed
+on device 0 while block t-1 is transformed on device 1, block t-2 is
+multiplied by H on device 2, and block t-3 is inverse-transformed on
+device 3 — a GPipe-style schedule over mesh neighbours.
 
 SPMD form: with P pipeline devices and B blocks, the loop runs B + P - 1
 ticks. At each tick device d applies its stage group to the block handed
 over by device d-1 (device 0 ingests block t from the input), then every
 in-flight block moves one hop down the chain via ONE `ppermute`
-(neighbor traffic only — the ring pattern rides ICI). Outputs complete
+(neighbour traffic only — the ring pattern). Outputs complete
 on device P-1 and are replicated by a masked `psum`. Steady state keeps
 all P devices busy; pipeline bubbles are the usual P-1 fill/drain ticks.
 
-Split re/im planes throughout — runs on complex-less TPU runtimes.
+Split re/im planes throughout.
 """
 
 from __future__ import annotations
@@ -34,10 +34,7 @@ from jax.sharding import Mesh, PartitionSpec as P
 from fftlab.algos.split_stockham import stockham_fft_split_unscaled
 from fftlab.core.types import Direction
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 N_STAGES = 4  # window | forward FFT | xH | inverse FFT (+1/n)
 

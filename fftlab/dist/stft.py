@@ -4,7 +4,7 @@
 The signal's time axis is sharded into contiguous chunks; each device owns
 the frames whose start index falls inside its chunk. Because consecutive
 frames overlap by (fft_size - hop) samples, a device's last frames reach
-into the next chunk — the right neighbor sends that head over ICI with one
+into the next chunk — the right neighbor sends that head with one
 `ppermute` (mirror image of the overlap-save halo, which flows leftward).
 """
 
@@ -21,10 +21,7 @@ from fftlab.algos.stockham import stockham_fft_unscaled
 from fftlab.core.types import Direction, complex_dtype_for
 from fftlab.core.window import get_window
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 @functools.partial(

@@ -18,11 +18,11 @@ swapped: interpreting Y[k1, k2] as the input matrix B'[j2', j1'] of an
 its output lands exactly on x.reshape(n2, n1) — so the pipeline's input
 and output shardings are IDENTICAL (P(..., None, axis)) and chained
 filters compose without any re-sharding. Total comms: two all_to_alls
-over ICI, nothing else. (Reference anchor: parallel_fft.c:248-255 fuses
-the twiddle into downstream work; this is the multi-chip version of
+over the mesh axis, nothing else. (Reference anchor: parallel_fft.c:248-255
+fuses the twiddle into downstream work; this is the multi-device version of
 that idea applied to the whole filter sandwich.)
 
-Split re/im planes throughout — runs on complex-less TPU runtimes.
+Split re/im planes throughout.
 """
 
 from __future__ import annotations
@@ -38,10 +38,7 @@ from fftlab.core.types import Direction, FORWARD
 from fftlab.dist.four_step import split_n
 from fftlab.dist.four_step_split import _twiddle_cs
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 def _four_step_matrix_local(br, bi, *, rows: int, cols: int, n: int,

@@ -1,9 +1,9 @@
 """Welch PSD with segments sharded across devices and ``psum`` averaging.
 
-TPU-native re-design of the reference's Welch method
+A re-design of the reference's Welch method
 (power_spectrum.c:88-130): the overlapping segments are embarrassingly
 parallel (SURVEY.md §2.2), so they shard over the mesh as a batch dim and
-the average becomes one `psum` over ICI — replacing nothing in the
+the average becomes one `psum` over the mesh axis — replacing nothing in the
 reference (it averages serially on one core).
 """
 
@@ -20,10 +20,7 @@ from fftlab.algos.stockham import stockham_fft_unscaled
 from fftlab.core.types import Direction, complex_dtype_for
 from fftlab.core.window import get_window, power_gain
 
-try:
-    from jax import shard_map  # type: ignore[attr-defined]
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 
 @functools.partial(

@@ -1,6 +1,6 @@
 """DSP applications built on the plan API.
 
-TPU-native analog of the reference's applications/ layer: filtering,
+The analog of the reference's applications/ layer: filtering,
 convolution, spectrum analysis (periodogram/Welch/correlation/coherence),
 STFT, 2D image processing, pitch detection, streaming analysis.
 """

@@ -1,7 +1,7 @@
 """Audio spectrum analysis: windowed spectra, peak finding, note mapping,
 and the streaming (realtime) analyzer.
 
-TPU-native analog of reference applications/audio_spectrum.c (windows
+The analog of reference applications/audio_spectrum.c (windows
 :37-57, bin<->freq :76-78, local-max peak finder sorted by magnitude
 :87-115, freq->note :181-198) and examples/realtime_analyzer.c (circular
 buffer + hop trigger :58-93, EMA-averaged magnitude :75-91, peak tracking
@@ -137,7 +137,7 @@ class RealtimeAnalyzer:
     """Streaming spectrum analyzer (realtime_analyzer.c re-design).
 
     The reference processes one hop at a time from a circular buffer; on
-    TPU the natural unit is a CHUNK of samples — `process(chunk)` frames
+    an accelerator the natural unit is a CHUNK of samples — `process(chunk)` frames
     every hop inside it (plus the carried overlap tail), runs one batched
     windowed FFT, EMA-averages the frames, and returns the latest
     averaged magnitude spectrum. State = (overlap tail, EMA carry).
@@ -160,9 +160,7 @@ class RealtimeAnalyzer:
         n_frames = (len(buf) - c.fft_size) // c.hop + 1
         consumed = n_frames * c.hop
         self._tail = buf[consumed:]
-        # Frame ON DEVICE via stft_split (the DMA-framing Pallas kernel
-        # on TPU for supported sizes — the default 2048/512 config rides
-        # it): the host ships the raw chunk once instead of a host-built
+        # Frame ON DEVICE via stft_split: the host ships the raw chunk once instead of a host-built
         # frame tensor that is overlap-factor x larger. The cut length
         # yields exactly n_frames ceil-framed windows, so no zero-padded
         # phantom frame enters the EMA. No complex dtype anywhere.
@@ -193,9 +191,8 @@ class RealtimeAnalyzer:
         """Whole-signal offline path: the batched STFT spectrogram with
         the same EMA (dsp/stft.py).
 
-        Like process(), the default path is complex-free (stft_split)
-        so it runs on TPU runtimes that reject complex dtypes; a custom
-        `cfft` opts into the complex stft path."""
+        Like process(), the default path is complex-free (stft_split);
+        a custom `cfft` opts into the complex stft path."""
         c = self.config
         x = jnp.asarray(signal, dtype=jnp.float32)
         if self.cfft is not None or x.ndim != 1:

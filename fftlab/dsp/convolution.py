@@ -1,7 +1,7 @@
 """Convolution: direct, FFT-based linear/circular, and block-streaming
 overlap-save / overlap-add.
 
-TPU-native analog of reference applications/convolution.c: direct O(n^2)
+The analog of reference applications/convolution.c: direct O(n^2)
 (:20-31), FFT linear convolution with next-pow2 zero padding (:34-68),
 circular convolution (:71-96) — plus real implementations of overlap-add
 and overlap-save, which the reference only describes in comments
@@ -41,7 +41,8 @@ def direct_convolution(x, h):
     xn = x.reshape(int(np.prod(batch)) if batch else 1, 1, x.shape[-1])
     hn = h[::-1].reshape(1, 1, h.shape[-1])
     y = jax.lax.conv_general_dilated(
-        xn, hn, window_strides=(1,), padding=[(h.shape[-1] - 1, h.shape[-1] - 1)]
+        xn, hn, window_strides=(1,), padding=[(h.shape[-1] - 1, h.shape[-1] - 1)],
+        precision=jax.lax.Precision.HIGHEST,
     )
     return y.reshape(*batch, x.shape[-1] + h.shape[-1] - 1)
 
@@ -92,8 +93,8 @@ def overlap_save(x, h, block: int | None = None, cfft=None):
     'same-ish' output as fft_convolution truncated to nx + nh - 1.
 
     The block loop is a `lax.scan`-free reshape: all blocks are formed by
-    one strided gather and processed as a batch — the TPU-native way
-    (blocks become the batch dim; the sharded version distributes them).
+    one strided gather and processed as a batch (blocks become the
+    batch dim; the sharded version distributes them).
     """
     if cfft is None:
         cfft = _cfft()
@@ -192,14 +193,10 @@ def convolve2d(img, kernel, cfft=None):
 
 
 def fft_convolution_split(xr, xi, h):
-    """Linear convolution on split re/im planes (the TPU serving path;
+    """Linear convolution on split re/im planes (the device serving path;
     convolution.c:34-68 semantics — zero-pad to pow2, FFT, pointwise,
-    IFFT, truncate). Returns (yr, yi) of length nx + nh - 1.
-
-    For padded sizes where the signal fits VMEM the whole sandwich runs
-    as kernels/resident_vmem.spectral_filter_resident (ONE HBM
-    residency); larger pow2 sizes use fourstep_vmem.spectral_filter_large
-    (4 HBM passes); otherwise the fused zero-transpose einsum sandwich.
+    IFFT, truncate). Returns (yr, yi) of length nx + nh - 1, through the
+    fused zero-transpose sandwich of plan.dispatch.spectral_filter_auto.
     """
     import jax.numpy as jnp
 
@@ -220,8 +217,7 @@ def fft_convolution_split(xr, xi, h):
     Hr, Hi = stockham_fft_split_unscaled(
         hp, jnp.zeros_like(hp), Direction.FORWARD
     )
-    # Route policy (kernels on TPU, fused einsum elsewhere) lives in
-    # plan.dispatch; H is computed on-device so the einsum route's
-    # permute happens wherever H lives.
+    # Route policy lives in plan.dispatch; H is computed on-device so
+    # the einsum route's permute happens wherever H lives.
     yr, yi = spectral_filter_auto(xpr, xpi, Hr, Hi)
     return yr[..., :out_len], yi[..., :out_len]

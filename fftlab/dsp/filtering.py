@@ -1,14 +1,15 @@
 """Frequency-domain FFT filtering.
 
-TPU-native analog of reference applications/fft_filtering.c: ideal
+The analog of reference applications/fft_filtering.c: ideal
 brick-wall responses with negative-frequency handling (:37-71),
 raised-cosine transition bands (:74-108), the FFT -> H[k] -> IFFT filter
 (:111-132), and FIR design by frequency sampling (:135-161).
 
 The filter response H is a plan-time float64 constant; the hot path is the
 FFT -> pointwise -> IFFT sandwich (SURVEY.md §3.4 calls this THE pipeline
-to fuse — see kernels/pallas_spectral.py for the fused-VMEM version and
-dist/overlap_save.py for the sharded streaming version).
+to fuse — see split_stockham.spectral_filter_split_fused for the
+zero-transpose version and dist/overlap_save.py for the sharded
+streaming version).
 """
 
 from __future__ import annotations
@@ -137,17 +138,8 @@ def design_fir(num_taps: int, params: FilterParams, cfft=None) -> np.ndarray:
     return imp * hamming(n, periodic=False)
 
 
-def _resident_filter_enabled() -> bool:
-    """Back-compat alias — the gate lives with the route policy in
-    plan.dispatch.resident_filter_enabled (which now names the variant;
-    this alias keeps the boolean view)."""
-    from fftlab.plan.dispatch import resident_filter_enabled
-
-    return bool(resident_filter_enabled())
-
-
 def fft_filter_split(xr, xi, params: FilterParams):
-    """TPU fast-path block filter on split re/im planes: the fused
+    """Device fast-path block filter on split re/im planes: the fused
     zero-transpose FFT -> H -> IFFT sandwich (split_stockham.
     spectral_filter_split_fused) with a plan-time real response H.
 
@@ -165,7 +157,6 @@ def fft_filter_split(xr, xi, params: FilterParams):
     h = design_response(n, params)
     rdtype = xr.dtype
 
-    # Route policy (resident / two-launch kernels on TPU, fused
-    # zero-transpose einsum elsewhere) lives in plan.dispatch.
+    # Route policy lives in plan.dispatch.
     return spectral_filter_auto(xr, xi, h.astype(rdtype),
                                 np.zeros(n, rdtype))

@@ -1,6 +1,6 @@
 """2D image-domain FFT processing.
 
-TPU-native analog of reference applications/image_fft.c: frequency-domain
+The analog of reference applications/image_fft.c: frequency-domain
 ideal low-pass and Gaussian filters (:147-178), high-pass edge detection
 (:214-235), fftshift (:75-96), and the 2D test-pattern generators
 (:99-144). The 2D transform itself is algos/fft2d.py (row-column

@@ -1,7 +1,7 @@
 """Pitch detection: spectral peak, harmonic product spectrum, and
 FFT-autocorrelation, combined with a confidence vote.
 
-TPU-native analog of reference examples/pitch_detection.c: the 97-note
+The analog of reference examples/pitch_detection.c: the 97-note
 C0-C8 frequency table (:23-51), cents-offset tuner (:54-75), spectral-peak
 detector with parabolic interpolation (:78-109), harmonic product spectrum
 (:112-147), autocorrelation pitch (:150-189), and the variance-based
@@ -9,7 +9,7 @@ combination (:199-233).
 
 Detectors are batched: input [..., n] real frames -> per-frame pitch.
 The FFT work is one batched transform; the argmax/interpolation epilogues
-are tiny VPU reductions.
+are tiny reductions.
 """
 
 from __future__ import annotations

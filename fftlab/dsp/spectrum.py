@@ -1,6 +1,6 @@
 """Power-spectrum estimation: periodogram, Welch, correlation, coherence.
 
-TPU-native analog of reference applications/power_spectrum.c: windowed
+The analog of reference applications/power_spectrum.c: windowed
 periodogram with power correction and one-sided 2x scaling (:58-85),
 Welch's overlapping segmented average (:88-130), autocorrelation via FFT
 (:133-159), cross-correlation (:162-192), spectral statistics (:227-283) —
@@ -169,7 +169,7 @@ def spectral_stats(psd, freqs) -> dict:
 
 
 def autocorrelation_split(x):
-    """TPU-native autocorrelation: real 1D/batched signal in, normalized
+    """Split-plane autocorrelation: real 1D/batched signal in, normalized
     lags 0..n-1 out, no complex dtype (pad 2n, |X|^2, inverse — the
     power_spectrum.c:133-159 pipeline on split planes).
 
@@ -189,7 +189,7 @@ def autocorrelation_split(x):
 
 
 def cross_correlation_split(x, y):
-    """TPU-native cross-correlation on split planes: packs the two real
+    """Cross-correlation on split planes: packs the two real
     signals into ONE complex transform (x -> re, y -> im), then
     Sxy[k] = conj(X)Y = (A*B* recovered via Hermitian split). Returns the
     same two-sided length 2n-1 sequence as `cross_correlation`."""
@@ -218,8 +218,8 @@ def cross_correlation_split(x, y):
 
 def coherence_split(x, y, sample_rate: float = 1.0, window_size: int = 256,
                     overlap: float = 0.5, window="hann"):
-    """TPU-native magnitude-squared coherence: Welch cross/auto spectra
-    via stft_split (Pallas DMA framing on TPU for supported sizes).
+    """Split-plane magnitude-squared coherence: Welch cross/auto spectra
+    via stft_split.
 
     Matches `coherence` (property-tested)."""
     from fftlab.dsp.stft import stft_split
@@ -247,9 +247,8 @@ def coherence_split(x, y, sample_rate: float = 1.0, window_size: int = 256,
 
 def welch_psd_split(x, sample_rate: float = 1.0, window_size: int = 256,
                     overlap: float = 0.5, window="hann"):
-    """TPU-native Welch PSD: real 1D signal in, real PSD out, no complex
-    dtype anywhere (periodograms via dsp.stft.stft_split, which uses the
-    Pallas STFT kernel on TPU when sizes allow).
+    """Split-plane Welch PSD: real 1D signal in, real PSD out, no complex
+    dtype anywhere (periodograms via dsp.stft.stft_split).
 
     Matches `welch_psd` (property-tested)."""
     from fftlab.dsp.stft import stft_split

@@ -1,6 +1,6 @@
 """Short-time Fourier transform and inverse.
 
-TPU-native analog of the reference's streaming hop/overlap machinery
+The analog of the reference's streaming hop/overlap machinery
 (examples/realtime_analyzer.c:58-93: circular buffer + hop-size trigger +
 window -> FFT). Batched formulation: ALL frames are produced by one
 strided gather and transformed as a batch — the frame axis is the natural
@@ -21,8 +21,8 @@ from fftlab.core.window import get_window
 
 
 def frame_signal(x, frame_size: int, hop: int, pad: bool = True):
-    """[..., n] -> [..., n_frames, frame_size], gather-free (slice +
-    concat framing; elementwise gathers are ~10x slower on TPU)."""
+    """[..., n] -> [..., n_frames, frame_size] (core/framing.py picks
+    the framing strategy)."""
     from fftlab.core.framing import frame_signal_strided
 
     x = jnp.asarray(x)
@@ -98,7 +98,7 @@ def istft(S, fft_size: int = 2048, hop: int = 512, window="hann",
 
 def istft_split(Sr, Si, fft_size: int = 2048, hop: int = 512,
                 window="hann", length: int | None = None):
-    """TPU-native inverse STFT on split planes: one-sided (re, im)
+    """Inverse STFT on split planes: one-sided (re, im)
     spectra [n_frames, fft_size//2+1] -> real [total], windowed
     overlap-add with COLA normalization (istft semantics, no complex
     dtype anywhere).
@@ -159,19 +159,13 @@ def spectrogram(x, fft_size: int = 2048, hop: int = 512, window="hann",
 
 def stft_split(x, fft_size: int = 2048, hop: int = 512, window="hann",
                onesided: bool = True):
-    """TPU-native STFT of a real 1D signal on split planes:
-    returns (re, im) of [n_frames, bins] — no complex dtype anywhere.
-
-    On TPU with kernel-supported sizes this routes to the fused
-    DMA-framing Pallas kernel (kernels/stft_vmem.py, ~8.7x the XLA
-    gather path); otherwise the split-Stockham XLA path with strided
-    framing. Framing convention: frames start at k*hop over the
-    zero-extended signal, n_frames = ceil((n - fft_size)/hop) + 1.
+    """STFT of a real 1D signal on split planes: returns (re, im) of
+    [n_frames, bins] — no complex dtype anywhere — through strided
+    framing and the split-Stockham path. Framing convention: frames
+    start at k*hop over the zero-extended signal,
+    n_frames = ceil((n - fft_size)/hop) + 1.
     """
-    import jax
-
     from fftlab.core.framing import frame_signal_strided
-    from fftlab.kernels.fft_vmem import supported_size
 
     x = jnp.asarray(x, dtype=jnp.float32)
     if x.ndim != 1:
@@ -180,18 +174,6 @@ def stft_split(x, fft_size: int = 2048, hop: int = 512, window="hann",
     # ceil framing (the docstring's convention, matching stft()'s
     # pad=True): the tail is zero-extended rather than silently dropped.
     n_frames = max(-(-max(n - fft_size, 0) // hop) + 1, 1)
-    from fftlab.kernels.stft_vmem import small_frame_supported
-
-    use_pallas = (jax.default_backend() == "tpu"
-                  and ((supported_size(fft_size) and hop % 128 == 0)
-                       or small_frame_supported(fft_size, hop)))
-    if use_pallas:
-        from fftlab.kernels.stft_vmem import pallas_stft_split
-
-        need = (n_frames - 1) * hop + fft_size
-        xp = jnp.pad(x, (0, max(need - n, 0)))
-        return pallas_stft_split(xp, fft_size, hop, window,
-                                 onesided=onesided, interpret=False)
     from fftlab.algos.split_stockham import stockham_fft_split_unscaled
     from fftlab.core.types import Direction
 

@@ -1,6 +1,6 @@
 """Native (C++) runtime components with ctypes bindings.
 
-The reference is 100% native code; where the runtime around the TPU
+The reference is 100% native code; where the runtime around the device
 compute path genuinely belongs on the host, this package provides the
 C++ implementations (built from native/ at the repo root into
 libfftlab_native.so):

@@ -2,7 +2,7 @@
 
 The framework's second execution backend — the row the reference's
 dispatch vtable reserves for its GPU/Metal legs (fft_gpu.c:49-97). The
-device leg here is Pallas/XLA; this is the genuine host leg: C++ double
+device leg here is JAX/XLA; this is the genuine host leg: C++ double
 precision, batch-first split planes, no JAX involvement at all. Uses:
 
 - independent correctness oracle (a third codebase next to numpy's

@@ -2,7 +2,7 @@
 
 The reduced-precision reference track (optimizations/fixed_point_fft.c):
 Q15 int16 samples, per-stage >>1 block scaling, block-floating-point
-normalization. The TPU low-precision experiments (bf16/int8 twiddles)
+normalization. The reduced-precision experiments (algos/lowprec.py)
 validate against this oracle.
 """
 

@@ -1,5 +1,5 @@
 """Planning layer: FFTW-style auto-selection, flags, wisdom, hardware caps.
 
-TPU-native analog of the reference's v2 public API
+The analog of the reference's v2 public API
 (algorithms/auto/fft_auto.c + include/fft_auto.h).
 """

@@ -1,199 +1,44 @@
-"""Capability-driven kernel routing for the split-plane device path.
+"""Capability-driven routing for the split-plane device path.
 
 The reference dispatches through a backend vtable selected at runtime
-(fft_gpu.c:49-97); round 1 of this framework left the equivalent choice
-to env vars at call sites. This module closes that gap: the planner
-consumes `plan.hardware.detect_hardware()` caps and picks the execution
-path per (platform, n, batch) — the detect -> select flow of
-fft_auto.c:55-93 + :136-172, actually consumed.
+(fft_gpu.c:49-97). Here the equivalent choice is one function,
+`select_split_impl`, and one executor keyed by route name, `run_route`,
+shared by `fft_split_auto`, the split plans (plan.api) and leaf tuning
+(plan.split_tuning) so that tuning measures exactly what dispatch runs.
 
 Routes (split re/im planes, [..., n] batch-first):
 
-  pallas_vmem      one-launch kernel, TPU, n = m*128 (m 8..128 pow2)
-  resident_vmem    ONE-HBM-RESIDENCY kernel, TPU, pow2 n in 2^15..2^20:
-                   whole signal lives in VMEM, 16 B/sample traffic —
-                   half the two-pass floor on paper; the r3 counted A/B
-                   measured it SLOWER than fourstep_vmem (strided
-                   column-chunk delivery dominates), so it stays a
-                   tuning candidate, not a default
-  resident_v4      the same residency with the assembly transposes
-                   moved to phase A (static slicing, overlapping the
-                   input DMA) — phase B is pure column-FFT + store
-  resident_v6      the same residency with ZERO in-VMEM transposes:
-                   phase B runs the second FFT in lane-contraction
-                   form, the corner turn riding the MXU contraction
-                   axes (fourstep_vmem._col_fft_lanes)
-  resident_cio     the same residency with EVERY HBM edge contiguous
-                   (copy-in/out phases in VMEM instead of strided
-                   column-chunk delivery)
-  fourstep_vmem    two-pass large-n kernel, TPU, pow2 n in 2^15..2^21
-                   (blocked layout; measured 2.65 ms/16×1M = 6.3 GS/s
-                   vs einsum's 3.2, r2s3 confirm)
-  threestep_vmem   three-pass huge-n kernel, TPU, pow2 n in 2^21..2^26
-                   (default route at 2^22+; two-pass wins at 2^21)
-  pallas_pipeline  fused-stage pipeline for large pow2 n (multi-launch)
-  einsum           the XLA MXU Stockham path (works everywhere)
-
-On non-TPU platforms every route degrades to `einsum` (Pallas compiles
-only for TPU; interpret mode is for tests, not serving). Environment
-overrides: FFTLAB_FORCE_IMPL=<route> wins; FFTLAB_NO_PALLAS disables
-kernel routes.
+  einsum   the XLA split-Stockham path (algos/split_stockham.py): one
+           real contraction per stage at Precision.HIGHEST, with the
+           contraction leaf taken from measured leaf wisdom when present
 """
 
 from __future__ import annotations
 
-import os
-
-from fftlab.plan.hardware import detect_hardware
-
-ROUTES = ("pallas_vmem", "resident_vmem", "resident_v4", "resident_v6",
-          "resident_v4_3x", "resident_v6_3x",
-          "resident_cio", "fourstep_vmem", "threestep_vmem",
-          "pallas_pipeline", "einsum")
-
-# Measured on the v5e (docs/performance.md): the one-residency kernel
-# beats the einsum path from 8K up; at 4K multi-row blocking makes it
-# competitive but not a clear win, so the crossover stays at 8192.
-_VMEM_MIN_N = 8192
+ROUTES = ("einsum",)
 
 
 def select_split_impl(n: int, batch: int = 1) -> str:
     """Route for an n-point split-plane FFT with `batch` rows."""
-    forced = os.environ.get("FFTLAB_FORCE_IMPL")
-    if forced:
-        if forced not in ROUTES:
-            raise ValueError(f"FFTLAB_FORCE_IMPL={forced!r}; want one of {ROUTES}")
-        return forced
-    caps = detect_hardware()
-    if caps.platform != "tpu" or os.environ.get("FFTLAB_NO_PALLAS"):
-        return "einsum"
-    # Measured wisdom (plan.split_tuning.tune_split_route) outranks the
-    # static heuristic: FFT_MEASURE consumed at the dispatch level.
-    from fftlab.plan.split_tuning import best_route
-
-    measured = best_route(n)
-    if measured is not None:
-        return measured
-    from fftlab.kernels.fft_vmem import supported_size
-    from fftlab.kernels.fourstep_vmem import supported_large
-
-    if supported_size(n) and n >= _VMEM_MIN_N:
-        return "pallas_vmem"
-    from fftlab.kernels.resident_vmem import supported_resident
-
-    # resident_v6 (lane-contraction phase B — ZERO in-VMEM transposes)
-    # is the static default for the one-residency sizes as of r5: two
-    # independent paired campaigns measured it ~4.5% faster than v4
-    # (v6_hi vs v4_hi median ratio 0.9563 r5c1 / 0.9553 r5c2, n=32
-    # each, IQR < 0.02) — the transpose stores v4 keeps on phase A's
-    # path are real VPU cost the MXU contraction form avoids (the r4
-    # bf16_3x wash had exonerated the contractions, not the
-    # transposes). v4 remains one env away (FFTLAB_FORCE_IMPL) and in
-    # every sweep. Wisdom entries (factory_wisdom.json ships the same
-    # verdict) outrank this heuristic when present.
-    if supported_resident(n):
-        return "resident_v6"
-    if supported_large(n):
-        return "fourstep_vmem"
-    from fftlab.kernels.threestep_vmem import supported_huge
-
-    if supported_huge(n):
-        return "threestep_vmem"
     return "einsum"
-
-
-def kernels_enabled() -> bool:
-    """Global kill switch consumed by every kernel-routing call site
-    (dispatch itself plus dsp/filtering + dsp/convolution): False when
-    FFTLAB_NO_PALLAS is set or FFTLAB_FORCE_IMPL pins the einsum path."""
-    if os.environ.get("FFTLAB_NO_PALLAS"):
-        return False
-    if os.environ.get("FFTLAB_FORCE_IMPL") == "einsum":
-        return False
-    return True
-
-
-def resident_filter_enabled() -> str | None:
-    """The blocked two-launch sandwich is the filter DEFAULT; the
-    single-residency variants are opt-in. Final r3 evidence (mins
-    across ALL campaigns — the only robust estimator on a service
-    whose congestion varies minute-to-minute): fsfilt_blocked reached
-    2.35 ms for the 16x1M sandwich in the r3 omnibus and 2.53 ms in
-    the healthy r2s3 sweep — two independent campaigns within 8%.
-    The cio resident sandwich got CLOSE once (2.52 ms omnibus min, a
-    near-tie); resfilt v2 never beat 7.6 ms. Blocked keeps the default
-    on reproducibility (two campaigns vs one sample) and v2-losing
-    evidence; =cio stays one env var away if its near-tie repeats.
-    An earlier r3 flip to resident based on incomplete minima was
-    reverted by this data.
-    FFTLAB_RESIDENT_FILTER=1 opts into v2 (strided edges), =cio or 2
-    into v3 (contiguous edges), =v5 or 3 into the transpose-free
-    lane-contraction sandwich, =v7 or 4 into the v4-transpose-placement
-    sandwich (corner turns moved onto the DMA-overlapped phases).
-    Returns the variant or None."""
-    v = os.environ.get("FFTLAB_RESIDENT_FILTER", "0")
-    if v == "1":
-        return "v2"
-    if v in ("2", "cio"):
-        return "cio"
-    if v in ("3", "v5"):
-        return "v5"
-    if v in ("4", "v7"):
-        return "v7"
-    return None
 
 
 def spectral_filter_auto(xr, xi, hr, hi, permuted=None):
     """The FFT -> H -> IFFT sandwich (fft_filtering.c:111-132 hot path)
-    through the capability-selected route — ONE dispatcher shared by
-    dsp.filtering, dsp.convolution, and the Bluestein convolution so the
-    route policy lives in one place.
+    — ONE dispatcher shared by dsp.filtering, dsp.convolution, and the
+    Bluestein convolution so the route policy lives in one place.
 
     xr, xi: [..., n] split planes; hr, hi: the length-n frequency
     response in NATURAL bin order (host numpy or device array; the
-    kernel routes consume it directly, the fused einsum route
-    digit-reverses a host constant at plan time itself). `permuted`
-    optionally supplies a pre-permuted (hr_p, hi_p) pair for the einsum
-    route — pass it when H is a cached plan-time constant so the O(n)
-    host gather isn't redone per call.
-    Equivalent numerics on every route: ifft(fft(x) * H), 1/n scaled.
-    On TPU, supported pow2 n rides the fused VMEM kernels — the
-    blocked two-launch sandwich by default (min-statistics winner;
-    FFTLAB_RESIDENT_FILTER opts into the one-residency variants; see
-    resident_filter_enabled)."""
+    fused route digit-reverses a host constant at plan time itself).
+    `permuted` optionally supplies a pre-permuted (hr_p, hi_p) pair —
+    pass it when H is a cached plan-time constant so the O(n) host
+    gather isn't redone per call.
+    Numerics: ifft(fft(x) * H), 1/n scaled."""
     import jax.numpy as jnp
 
     from fftlab.algos.split_stockham import spectral_filter_split_fused
 
-    n = int(jnp.asarray(xr).shape[-1])
-    if detect_hardware().platform == "tpu" and kernels_enabled():
-        from fftlab.kernels.fourstep_vmem import (
-            spectral_filter_large,
-            supported_large,
-        )
-        from fftlab.kernels.resident_vmem import (
-            spectral_filter_resident,
-            spectral_filter_resident_cio,
-            spectral_filter_resident_v5,
-            spectral_filter_resident_v7,
-            supported_resident,
-        )
-
-        variant = resident_filter_enabled()
-        if supported_resident(n) and variant:
-            fuse = {"cio": spectral_filter_resident_cio,
-                    "v5": spectral_filter_resident_v5,
-                    "v7": spectral_filter_resident_v7,
-                    "v2": spectral_filter_resident}[variant]
-            return fuse(xr, xi, jnp.asarray(hr), jnp.asarray(hi))
-        # The two-launch sandwich above 2^20 CRASHES the backend
-        # compiler (HTTP 500, bench r3s2 at m=2^21): the L=2048 pass
-        # slabs sit at the 12-slab VMEM compile ceiling and the
-        # sandwich's H operands push past it. Larger sizes take the
-        # fused einsum sandwich below (pure XLA, compiles everywhere).
-        if supported_large(n) and n <= (1 << 20):
-            return spectral_filter_large(xr, xi, jnp.asarray(hr),
-                                         jnp.asarray(hi))
     if permuted is not None:
         hr_p, hi_p = permuted
         return spectral_filter_split_fused(xr, xi, jnp.asarray(hr_p),
@@ -223,91 +68,23 @@ def fft_split_auto(xr, xi, direction=None):
 def run_route(route: str, xr, xi, direction, scale: float | None = None):
     """Execute a split-plane FFT through a NAMED route (the vtable row
     of fft_gpu.c:140-287, keyed by route name instead of backend enum).
-    Used by fft_split_auto, split plans (plan.api), and route tuning
-    (plan.split_tuning) — ONE mapping so tuning measures exactly what
-    dispatch executes.
 
-    `scale` folds an output normalization into the route the cheapest
-    way it supports: kernel routes bake it into their last-pass DFT
-    tables (zero extra HBM traffic); XLA routes multiply after, which
-    fuses into the last contraction. Timing loops need this — a trailing
-    multiply that XLA can fuse but a pallas_call cannot would bias any
-    cross-route measurement against the kernels."""
+    `scale` folds an output normalization into the route; on the XLA
+    route the multiply fuses into the last contraction."""
     import jax.numpy as jnp
+
+    from fftlab.algos.split_stockham import fft_split
+    from fftlab.plan.split_tuning import best_leaf
 
     if route not in ROUTES:
         raise ValueError(f"unknown route {route!r}; want one of {ROUTES}")
     xr = jnp.asarray(xr)
     xi = jnp.asarray(xi)
-    n = int(xr.shape[-1])
-    batch = 1
-    for d in xr.shape[:-1]:
-        batch *= int(d)
-
-    def _post(yr, yi):  # XLA paths: fuses into the preceding op
-        if scale is None:
-            return yr, yi
-        s = jnp.asarray(scale, dtype=yr.dtype)
-        return yr * s, yi * s
-
-    if route == "pallas_vmem":
-        from fftlab.kernels.fft_vmem import pallas_fft_split
-
-        return pallas_fft_split(xr, xi, direction, scale=scale)
-    if route == "resident_vmem":
-        from fftlab.kernels.resident_vmem import fft_split_resident
-
-        return fft_split_resident(xr, xi, direction, scale=scale)
-    if route == "resident_v4":
-        from fftlab.kernels.resident_vmem import fft_split_resident
-
-        return fft_split_resident(xr, xi, direction, scale=scale,
-                                  layout="v4")
-    if route == "resident_v6":
-        from fftlab.kernels.resident_vmem import fft_split_resident
-
-        return fft_split_resident(xr, xi, direction, scale=scale,
-                                  layout="v6")
-    if route in ("resident_v4_3x", "resident_v6_3x"):
-        # bf16_3x MXU contractions (3 passes vs HIGHEST's 6): device
-        # SNR 103.6-104.0 dB vs the f64 oracle (r4 prec probe) — above
-        # the 100 dB gate, half the MXU time where the kernel is
-        # compute-crossed.
-        from fftlab.kernels.resident_vmem import fft_split_resident
-
-        return fft_split_resident(xr, xi, direction, scale=scale,
-                                  layout=route[9:11], prec="3x")
-    if route == "resident_cio":
-        from fftlab.kernels.resident_vmem import fft_split_resident_cio
-
-        return fft_split_resident_cio(xr, xi, direction, scale=scale)
-    if route == "fourstep_vmem":
-        from fftlab.kernels.fourstep_vmem import fft_split_large
-
-        return fft_split_large(xr, xi, direction, scale=scale)
-    if route == "threestep_vmem":
-        from fftlab.kernels.threestep_vmem import fft_split_huge
-
-        return fft_split_huge(xr, xi, direction, scale=scale)
-    if route == "pallas_pipeline":
-        from fftlab.kernels.stage_fused import (
-            fft_split_pipeline,
-            pipeline_factors,
-        )
-
-        # plan_factors' balanced splits can violate the pipeline's
-        # M % 128 stage constraint (compile-gate r3 finding) — use the
-        # constraint-satisfying chooser.
-        factors = pipeline_factors(n)
-        yr, yi = fft_split_pipeline(xr.reshape(batch, n),
-                                    xi.reshape(batch, n),
-                                    direction, factors=factors)
-        yr, yi = _post(yr, yi)
-        return yr.reshape(xr.shape), yi.reshape(xr.shape)
-    from fftlab.algos.split_stockham import fft_split
-    from fftlab.plan.split_tuning import best_leaf
-
     # Consume leaf wisdom (tune_split_leaf): the measured contraction
     # leaf for this size, defaulting to DEFAULT_LEAF_SPLIT when never
-    # tuned — so the einsum route actually executes what was measured.
-    return _post(*fft_split(xr, xi, direction, best_leaf(n)))
+    # tuned — so the route actually executes what was measured.
+    yr, yi = fft_split(xr, xi, direction, best_leaf(int(xr.shape[-1])))
+    if scale is None:
+        return yr, yi
+    s = jnp.asarray(scale, dtype=yr.dtype)
+    return yr * s, yi * s

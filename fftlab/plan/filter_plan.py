@@ -11,10 +11,9 @@ plan once (response spectrum, block size, optional mesh), then
                          concatenated outputs IDENTICAL to filtering the
                          concatenated input), and
 - a mesh-attached plan runs the sharded overlap-save (ppermute halo)
-  across chips.
+  across devices.
 
-Everything under the hood is the split-plane path, so plans execute on
-complex-less TPU runtimes.
+Everything under the hood is the split-plane path.
 """
 
 from __future__ import annotations
@@ -125,13 +124,6 @@ class FilterPlan:
                 return packed
         xi = (jnp.asarray(x_imag, dtype=jnp.float32)
               if x_imag is not None else jnp.zeros_like(xr))
-        if self._use_pallas():
-            from fftlab.kernels.os_filter_vmem import pallas_os_filter_split
-
-            yr, yi = pallas_os_filter_split(
-                xr, xi, self.h, fft_size=self._pallas_fft_size()
-            )
-            return (yr, yi) if x_imag is not None else yr
         pad = [(0, 0)] * (xr.ndim - 1) + [(self.nh - 1, 0)]
         yr, yi = self._jit_blocks(jnp.pad(xr, pad), jnp.pad(xi, pad))
         return (yr, yi) if x_imag is not None else yr
@@ -158,15 +150,8 @@ class FilterPlan:
         ai = jnp.concatenate(
             [a[s - keep:], b, jnp.zeros(T - keep - (n - s), xr.dtype)]
         )
-        if self._use_pallas():
-            from fftlab.kernels.os_filter_vmem import pallas_os_filter_split
-
-            yr, yi = pallas_os_filter_split(
-                ar, ai, self.h, fft_size=self._pallas_fft_size()
-            )
-        else:
-            pad = [(keep, 0)]
-            yr, yi = self._jit_blocks(jnp.pad(ar, pad), jnp.pad(ai, pad))
+        pad = [(keep, 0)]
+        yr, yi = self._jit_blocks(jnp.pad(ar, pad), jnp.pad(ai, pad))
         return jnp.concatenate([yr[:s], yi[keep:keep + (n - s)]])
 
     # -- streaming --------------------------------------------------------
@@ -196,53 +181,8 @@ class FilterPlan:
         padded = keep + next_power_of_two(n_blocks) * hop
         zpad = np.zeros(padded - len(buf), dtype=np.float32)
         bufp = jnp.asarray(np.concatenate([buf, zpad]))
-        if self._use_pallas():
-            # DMA-framing kernel on the halo-prefixed buffer: the kernel
-            # computes the zero-history causal filter of bufp, and for
-            # output index i >= keep the history window sits entirely
-            # inside buf — so dropping the first `keep` outputs yields
-            # the exact streaming continuation (same contract as the
-            # _jit_blocks valid-region slice below).
-            from fftlab.kernels.os_filter_vmem import pallas_os_filter_split
-
-            yr, _ = pallas_os_filter_split(
-                bufp, jnp.zeros(padded, jnp.float32), self.h,
-                fft_size=self._pallas_fft_size(),
-            )
-            return np.asarray(yr)[keep : keep + len(c)]
         yr, _ = self._jit_blocks(bufp, jnp.zeros(padded, jnp.float32))
         return np.asarray(yr)[: len(c)]
-
-    def _use_pallas(self) -> bool:
-        """The fused DMA overlap-save kernel (kernels/os_filter_vmem.py)
-        measures ~45x the gather-framing XLA path on this TPU backend;
-        it is the default on TPU for 1D signals. FFTLAB_NO_PALLAS_FILTER
-        disables it."""
-        import os
-
-        if os.environ.get("FFTLAB_NO_PALLAS_FILTER"):
-            return False
-        # The kernel's block size is capped at 16384; taps whose halo
-        # fills a whole block can't run it — fall back to the XLA block
-        # path instead of raising at call time (the plan itself is fine).
-        halo_rows = -(-(self.nh - 1) // 128)
-        if halo_rows >= self._pallas_fft_size() // 128:
-            return False
-        try:
-            return jax.default_backend() == "tpu"
-        except Exception:
-            return False
-
-    def _pallas_fft_size(self) -> int:
-        from fftlab.kernels.fft_vmem import supported_size
-
-        if supported_size(self.fft_size):
-            return self.fft_size
-        # Round up to a kernel-supported block size.
-        c = max(next_power_of_two(self.fft_size), 1024)
-        while not supported_size(c) and c < 16384:
-            c *= 2
-        return min(c, 16384)
 
     def reset(self) -> None:
         """Forget streaming state (start a new stream)."""

@@ -1,6 +1,6 @@
 """Hardware capability detection.
 
-TPU-native analog of the reference's CPUID-based `fft_detect_hardware`
+The analog of the reference's CPUID-based `fft_detect_hardware`
 (fft_auto.c:55-93, fft_auto.h:145-154): instead of SSE/AVX/NEON bits, we
 report the JAX platform, device kind/count, per-device memory, and whether
 a multi-device mesh is available — the inputs the planner actually uses.
@@ -14,7 +14,7 @@ import functools
 
 @dataclasses.dataclass(frozen=True)
 class HardwareCaps:
-    platform: str  # 'tpu' | 'cpu' | 'gpu'
+    platform: str  # 'cpu' | 'gpu'
     device_kind: str
     num_devices: int
     num_local_devices: int
@@ -56,6 +56,24 @@ def detect_hardware() -> HardwareCaps:
         supports_f64=platform == "cpu",
         has_mesh=len(devices) > 1,
     )
+
+
+def gpu_name_and_power_limit() -> str:
+    """The card's name and power limit, as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`
+    prints them (one line per card), or "not available" where there is
+    no nvidia-smi. A card set below its maximum power runs slower under
+    load, so every device number is reported beside this line."""
+    import subprocess
+
+    try:
+        r = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=30, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return "not available"
+    return r.stdout.strip() or "not available"
 
 
 def print_hardware_info() -> None:

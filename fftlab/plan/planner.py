@@ -1,13 +1,13 @@
 """Algorithm selection and plan autotuning.
 
-TPU-native analog of the reference's size-class heuristic
+The analog of the reference's size-class heuristic
 (fft_auto.c:136-172) plus a REAL implementation of FFT_MEASURE
 (the reference's is a TODO stub, fft_auto.c:233-235).
 
 Reference heuristic (for parity documentation): pow2 n<=64 -> radix2-DIT,
 n<=1024 -> radix4-if-divisible, else split-radix; prime -> Bluestein;
-highly-composite -> mixed-radix. The TPU heuristic is simpler because the
-hardware changed the trade-offs: the MXU Stockham path dominates every
+highly-composite -> mixed-radix. This heuristic is simpler because the
+hardware changed the trade-offs: the matmul Stockham path dominates every
 size it supports (all prime factors <= leaf), and Bluestein covers the
 rest — but MEASURE mode times the real candidates on the real device, so
 the heuristic is only the ESTIMATE-mode default.
@@ -37,7 +37,7 @@ def estimate_algorithm(n: int, config: PlanConfig) -> str:
 
 def reference_heuristic(n: int) -> str:
     """The reference's own selection logic (fft_auto.c:136-172), exposed for
-    parity tests and documentation — NOT used as the TPU default."""
+    parity tests and documentation — NOT used as the default."""
     if is_power_of_two(n):
         if n <= 64:
             return "radix2_dit"
@@ -71,10 +71,8 @@ def measure_algorithm(n: int, direction, dtype, flags: Flags, config: PlanConfig
                       batch: int = 8, iters: int = 5) -> str:
     """Time each candidate on the device; record and return the winner.
 
-    Timing uses the hardened slope/readback protocol
-    (fftlab.bench.timing): inputs vary per iteration (the backend
-    memoizes repeated identical computations), completion is forced by a
-    readback (block_until_ready can return early here), and the
+    Timing uses the slope protocol (fftlab.bench.timing): inputs vary
+    per iteration, completion is fenced with block_until_ready, and the
     per-iteration cost is a two-point slope that cancels dispatch
     latency. Wisdom entries carry ``protocol: "slope"``. The reference
     left MEASURE a TODO (fft_auto.c:233-235)."""
@@ -101,9 +99,6 @@ def measure_algorithm(n: int, direction, dtype, flags: Flags, config: PlanConfig
     for name in candidate_algorithms(n, flags, config):
         fn = jax.jit(functools.partial(reg[name].fn, direction=direction))
         try:
-            # Derive a FRESH input per index (i is unbounded): a cycled
-            # pool would re-feed computed inputs and the backend's
-            # memoization would fake the ranking that becomes wisdom.
             dt = slope_time(
                 fn, lambda i: (x * (1.0 + 1e-3 * i),), iters=iters
             ) * 1e3

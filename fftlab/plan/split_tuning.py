@@ -1,17 +1,14 @@
-"""On-device autotuning for the split-plane fast path (FFT_MEASURE for
-the TPU pipeline — the reference left MEASURE a TODO, fft_auto.c:233-235;
+"""On-device autotuning for the split-plane path (FFT_MEASURE for the
+device pipeline — the reference left MEASURE a TODO, fft_auto.c:233-235;
 plan/planner.py implements it for the complex registry; this module
-covers the device path's real knob: the stage leaf radix).
+covers the split path's real knob: the stage leaf radix).
 
-Timing uses the backend-hardened protocol (varied inputs, readback-forced
-completion, iteration-count slope — see bench.py for why each part is
-needed on this TPU service). Winners persist through plan/wisdom.py under
-kind='split' so later processes skip the measurement.
+Winners persist through plan/wisdom.py under kind='split', tagged with
+the platform they were measured on, and are written to the wisdom file
+so later processes skip the measurement.
 """
 
 from __future__ import annotations
-
-
 
 import numpy as np
 
@@ -31,15 +28,18 @@ def _measure_leaf(n: int, leaf: int, batch: int, iters: int) -> float:
     xr = jnp.asarray(rng.standard_normal((batch, n)), jnp.float32)
     xi = jnp.asarray(rng.standard_normal((batch, n)), jnp.float32)
     f = jax.jit(lambda a, b: fft_split(a, b, leaf=leaf))
-    # Fresh input per unbounded index (slope_time contract): cycling a
-    # fixed pool would hit the backend's computation memoization.
     return slope_time(f, lambda i: (xr + i * 1e-3, xi), iters=iters)
 
 
 def tune_split_leaf(n: int, leaves=DEFAULT_LEAVES, batch: int = 4,
                     iters: int = 6, persist: bool = True) -> int:
     """Measure each candidate leaf for an n-point split FFT on the
-    current device; record and return the winner."""
+    current device; record and return the winner.
+
+    persist=True records the winner in the in-process table AND merges
+    it into the wisdom file (never clobbering other sizes' entries)."""
+    import jax
+
     from fftlab.algos.stockham import max_prime_factor
 
     best_leaf, best_t = None, float("inf")
@@ -60,133 +60,25 @@ def tune_split_leaf(n: int, leaves=DEFAULT_LEAVES, batch: int = 4,
         from fftlab.bench.timing import PROTOCOL
 
         wisdom.record(n, "f32", f"leaf={best_leaf}", best_t * 1e3,
-                      kind="split", extra={"protocol": PROTOCOL})
-    return best_leaf
-
-
-def best_leaf(n: int) -> int:
-    """Wisdom-recorded leaf for n, or the default."""
-    from fftlab.algos.split_stockham import DEFAULT_LEAF_SPLIT
-
-    cached = wisdom.lookup(n, "f32", kind="split")
-    if cached and cached["algorithm"].startswith("leaf="):
-        return int(cached["algorithm"].split("=", 1)[1])
-    return DEFAULT_LEAF_SPLIT
-
-
-def _route_candidates(n: int) -> list[str]:
-    """Execution routes measurable for an n-point split FFT on the
-    current platform (mirrors plan.dispatch's capability gates,
-    including the FFTLAB_NO_PALLAS / FFTLAB_FORCE_IMPL kill switches)."""
-    import jax
-
-    from fftlab.plan.dispatch import kernels_enabled
-
-    cands = ["einsum"]
-    if jax.default_backend() != "tpu" or not kernels_enabled():
-        return cands
-    from fftlab.kernels.fft_vmem import supported_size
-    from fftlab.kernels.fourstep_vmem import supported_large
-    from fftlab.kernels.resident_vmem import supported_resident
-    from fftlab.kernels.threestep_vmem import supported_huge
-
-    if supported_size(n):
-        cands.append("pallas_vmem")
-    if supported_resident(n):
-        cands.append("resident_vmem")
-        cands.append("resident_v4")
-        cands.append("resident_v6")
-        # bf16_3x contraction variants (half the MXU passes, 103.6+ dB
-        # device SNR)
-        cands.append("resident_v4_3x")
-        cands.append("resident_v6_3x")
-        cands.append("resident_cio")
-    if supported_large(n):
-        cands.append("fourstep_vmem")
-    if supported_huge(n):
-        cands.append("threestep_vmem")
-    return cands
-
-
-def tune_split_route(n: int, batch: int = 4, persist: bool = True,
-                     ks=(4, 10, 16), repeats: int = 3) -> str:
-    """FFT_MEASURE at the DISPATCH level: time every execution route
-    available for (n, batch) on this device with the hardened chain
-    protocol and record the winner under kind='route'; plan.dispatch
-    consults it before its static heuristic. The reference's planner
-    declares exactly this measure-once-then-reuse loop and stubs it
-    (fft_auto.c:233-235 + wisdom stubs :418-426).
-
-    Each route executes through dispatch.run_route with the chain's
-    1/sqrt(n) normalization FOLDED IN (kernel routes bake it into their
-    tables): a trailing multiply that XLA fuses into the einsum path but
-    cannot fuse into a pallas_call would charge the kernels a phantom
-    HBM pass and record the wrong winner."""
-    import jax
-
-    import jax.numpy as jnp
-
-    from fftlab.bench.timing import PROTOCOL, chain_time, min_slope
-    from fftlab.plan.dispatch import run_route
-
-    rng = np.random.default_rng(0)
-    xr = jnp.asarray(rng.standard_normal((batch, n)), jnp.float32)
-    xi = jnp.asarray(rng.standard_normal((batch, n)), jnp.float32)
-    scale = 1.0 / float(np.sqrt(n))  # keep chained magnitudes bounded
-
-    timings: dict[str, float] = {}
-    for route in _route_candidates(n):
-        def step(a, b, route=route):
-            from fftlab.core.types import FORWARD
-
-            return run_route(route, a, b, FORWARD, scale=scale)
-
-        # One retry on a non-positive slope: a transient load spike on
-        # the host (or a congestion burst on the service) can deflate a
-        # single chain below zero; a measurement that silently drops the
-        # route would also silently skip the wisdom persist.
-        for _attempt in range(2):
-            try:
-                raw = chain_time(step,
-                                 lambda i: (xr + jnp.float32(1e-3 * i),
-                                            xi - jnp.float32(1e-3 * i)),
-                                 ks=ks, repeats=repeats, return_raw=True)
-                dt = min_slope(raw)
-            except Exception:
-                break
-            if dt > 0:
-                timings[route] = dt
-                break
-    if not timings:
-        return "einsum"
-    best = min(timings, key=timings.get)
-    if persist:
-        wisdom.record(n, "f32", best, timings[best] * 1e3, kind="route",
+                      kind="split",
                       extra={"protocol": PROTOCOL, "batch": batch,
-                             "platform": jax.default_backend(),
-                             "timings_ms": {r: round(t * 1e3, 4)
-                                            for r, t in timings.items()}})
-        # persist=True means CROSS-PROCESS: merge the existing file
-        # first (never clobber other sizes' wisdom), then write, so
-        # later processes skip this measurement via best_route.
+                             "platform": jax.default_backend()})
         try:
             wisdom.import_wisdom(overwrite=False)
             wisdom.export_wisdom()
-        except Exception:  # an unwritable cache dir must not fail tuning
+        except OSError:  # an unwritable cache dir must not fail tuning
             pass
-    return best
+    return best_leaf
 
 
 _WISDOM_FILE_LOADED = False
 
 
 def _ensure_wisdom_loaded() -> None:
-    """Lazy one-time import of the default wisdom file, so route
-    winners measured by an earlier process (tune_split_route /
-    scripts/tpu_midrange_time.py) actually serve later ones — FFTW
-    auto-loads system wisdom the same way. Opt out with
-    FFTLAB_NO_WISDOM_FILE=1. In-process entries always win
-    (overwrite=False keeps them)."""
+    """Lazy one-time import of the default wisdom file, so leaves
+    measured by an earlier process serve later ones — FFTW auto-loads
+    system wisdom the same way. Opt out with FFTLAB_NO_WISDOM_FILE=1.
+    In-process entries always win (overwrite=False keeps them)."""
     global _WISDOM_FILE_LOADED
     if _WISDOM_FILE_LOADED:
         return
@@ -197,39 +89,23 @@ def _ensure_wisdom_loaded() -> None:
         return
     try:
         wisdom.import_wisdom(overwrite=False)
-    except Exception:  # malformed file must never break dispatch
-        pass
-    try:
-        # Repo-shipped measured defaults (lowest-priority tier): a fresh
-        # checkout with an empty ~/.cache still dispatches to the routes
-        # the last device A/B crowned (ab_summary.py --apply commits them).
-        wisdom.import_wisdom(wisdom.FACTORY_PATH, overwrite=False)
-    except Exception:
+    except (OSError, ValueError):  # malformed file must never break dispatch
         pass
 
 
-def best_route(n: int) -> str | None:
-    """Wisdom-recorded dispatch route for n (None if never measured,
-    measured on a DIFFERENT platform — wisdom files travel via
-    export/import — or no longer a valid candidate here)."""
+def best_leaf(n: int) -> int:
+    """Wisdom-recorded leaf for n, or the default. An entry measured on
+    a different platform (wisdom files travel via export/import) is
+    ignored."""
     import jax
 
-    _ensure_wisdom_loaded()
-    cached = wisdom.lookup(n, "f32", kind="route")
-    if not cached:
-        return None
-    rec_platform = cached.get("platform")
-    if rec_platform is not None and rec_platform != jax.default_backend():
-        return None
-    route = cached.get("algorithm")
-    if route is not None and route.endswith("_3x"):
-        # A precision-reduced route (bf16_3x, ~104 dB vs f32's ~136)
-        # must never be crowned as the DEFAULT for full-precision API
-        # calls, no matter what a (possibly congested) sweep recorded —
-        # it is a different accuracy class, opt-in via
-        # FFTLAB_MXU_PRECISION=3x only.
-        import os
+    from fftlab.algos.split_stockham import DEFAULT_LEAF_SPLIT
 
-        if os.environ.get("FFTLAB_MXU_PRECISION") != "3x":
-            route = route[:-3]
-    return route if route in _route_candidates(n) else None
+    _ensure_wisdom_loaded()
+    cached = wisdom.lookup(n, "f32", kind="split")
+    if not cached or not cached["algorithm"].startswith("leaf="):
+        return DEFAULT_LEAF_SPLIT
+    platform = cached.get("platform")
+    if platform is not None and platform != jax.default_backend():
+        return DEFAULT_LEAF_SPLIT
+    return int(cached["algorithm"].split("=", 1)[1])

@@ -29,13 +29,6 @@ def _default_path() -> str:
 
 DEFAULT_PATH = _default_path()  # informational; functions resolve live
 
-# Repo-shipped measured defaults: device A/B winners recorded by
-# `scripts/ab_summary.py --apply` are committed here so they survive a
-# wiped ~/.cache (fresh checkouts dispatch to the measured route
-# immediately — FFTW's "system wisdom" tier). User/measured entries
-# always outrank it (loaded with overwrite=False after the user file).
-FACTORY_PATH = os.path.join(os.path.dirname(__file__), "factory_wisdom.json")
-
 
 def _key(n: int, precision: str, kind: str = "c2c") -> str:
     return f"{kind}:{n}:{precision}"

@@ -1,6 +1,6 @@
 """Utilities: signal generation, metrics, plotting, file IO.
 
-TPU-native analog of reference utils/fft_utils.c and the signal helpers in
+The analog of reference utils/fft_utils.c and the signal helpers in
 include/fft_common.h:148-196.
 """
 
@@ -24,7 +24,7 @@ from fftlab.utils.io import (
 )
 from fftlab.utils.plotting import ascii_spectrum, ascii_image
 from fftlab.utils.trace import Timer, span, profiler_trace
-from fftlab.utils.compat import prefer_cpu_for_complex
+from fftlab.utils.compile_cache import enable_compile_cache
 from fftlab.utils.metrics import (
     magnitude,
     phase,

@@ -1,6 +1,6 @@
 """Signal file IO: text format compatible with the reference, plus npz.
 
-TPU-native analog of fft_utils.c:77-142 (save/load complex arrays as
+The analog of fft_utils.c:77-142 (save/load complex arrays as
 text with header + index/real/imag/magnitude/phase rows). The same column
 layout is kept so arrays saved by the compiled C reference load here for
 parity tests (SURVEY.md §5 checkpoint/resume analog). npz is the fast

@@ -1,18 +1,18 @@
 """Pedagogical visualizers: butterfly diagrams and memory-access traces.
 
-TPU-native analogs of the reference's teaching aids:
+Analogs of the reference's teaching aids:
 
 - `butterfly_diagram(n)` — ASCII dataflow of the radix-2 DIT butterfly
   network (reference radix2_dit.c:147-173 prints the same picture with
   printf).
 - `memory_access_trace(n)` — per-stage access-pattern table
-  (iterative_fft.c:101-133 analog), annotated with the TPU story:
-  stride vs the (8, 128) VMEM tile instead of a CPU cache line.
+  (iterative_fft.c:101-133 analog), annotated with stride vs a
+  1024-element memory tile instead of a CPU cache line.
 - `simulate_tile_touches(n)` — the toy cache simulator
-  (iterative_fft.c:144-175) rebuilt for VMEM tiles: counts how many
-  distinct (8, 128)-element tiles each stage touches for DIT strided
-  butterflies vs the Stockham matmul formulation, showing WHY the TPU
-  path (algos/stockham.py) avoids the bit-reversal scatter entirely.
+  (iterative_fft.c:144-175) rebuilt for 1024-element tiles: counts how
+  many distinct tiles each stage touches for DIT strided butterflies vs
+  the Stockham matmul formulation, showing WHY the device path
+  (algos/stockham.py) avoids the bit-reversal scatter entirely.
 
 All host-side and O(n log n) string work — teaching tools, not compute
 paths.
@@ -22,7 +22,7 @@ from __future__ import annotations
 
 from fftlab.core.types import is_power_of_two, log2_int
 
-_TILE = 8 * 128  # one float32 VMEM tile (sublanes x lanes)
+_TILE = 1024  # one toy memory tile: 1024 float32 (4 KB)
 
 
 def butterfly_diagram(n: int) -> str:
@@ -71,32 +71,32 @@ def butterfly_diagram(n: int) -> str:
 
 
 def memory_access_trace(n: int) -> str:
-    """Per-stage butterfly access-pattern table with TPU annotations.
+    """Per-stage butterfly access-pattern table with tile annotations.
 
     The reference's visualizer (iterative_fft.c:101-133) prints which
-    indices each butterfly touches to show cache behavior. On TPU the
-    unit is the (8, 128) VMEM tile: strides below 1024 elements stay
-    inside one float32 tile row-set, and the MXU formulation turns the
-    whole stage into a contiguous matmul.
+    indices each butterfly touches to show cache behavior. Here the
+    unit is a 1024-element tile: strides below 1024 elements stay
+    inside one tile, and the matmul formulation turns the whole stage
+    into a contiguous contraction.
     """
     if not is_power_of_two(n):
         raise ValueError(f"requires power-of-two n, got {n}")
     stages = log2_int(n)
     lines = [
         f"memory access by stage, n={n} (DIT butterflies: pair stride = m/2)",
-        f"{'stage':>5} {'m':>8} {'pair stride':>11} {'pattern':<24} TPU view",
+        f"{'stage':>5} {'m':>8} {'pair stride':>11} {'pattern':<24} tile view",
     ]
     for s in range(1, stages + 1):
         m = 1 << s
         half = m // 2
         if half < 128:
-            tpu = "inside one tile row (lane-local)"
+            view = "inside one 128-element row"
         elif half < _TILE:
-            tpu = "crosses sublanes, same tile set"
+            view = "crosses rows, same tile"
         else:
-            tpu = f"crosses tiles (stride {half // _TILE} tiles)"
+            view = f"crosses tiles (stride {half // _TILE} tiles)"
         first = f"(0,{half}) (1,{1 + half}) ..."
-        lines.append(f"{s:>5} {m:>8} {half:>11} {first:<24} {tpu}")
+        lines.append(f"{s:>5} {m:>8} {half:>11} {first:<24} {view}")
     lines.append(
         "\nthe scatter-free alternative: Stockham regroups each stage as a\n"
         "dense [batch, r] x [r, r] matmul (algos/stockham.py) so every\n"
@@ -106,13 +106,13 @@ def memory_access_trace(n: int) -> str:
 
 
 def simulate_tile_touches(n: int) -> dict:
-    """VMEM-tile touch counts: DIT strided butterflies vs Stockham stage.
+    """Tile touch counts: DIT strided butterflies vs Stockham stage.
 
-    Toy model (iterative_fft.c:144-175 analog, cache line -> VMEM tile):
+    Toy model (iterative_fft.c:144-175 analog, cache line -> tile):
     for each DIT stage, count distinct float32 tiles touched per
     butterfly pair, summed over the stage; Stockham touches each tile
     exactly once per stage (contiguous matmul).  Returns the totals and
-    the ratio — the quantitative version of "why Stockham on TPU".
+    the ratio — the quantitative version of "why Stockham".
     """
     if not is_power_of_two(n):
         raise ValueError(f"requires power-of-two n, got {n}")

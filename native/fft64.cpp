@@ -3,7 +3,7 @@
 // The second execution backend of the framework's dispatch story — the
 // role the reference gives its GPU/Metal legs (gpu/fft_gpu.c:49-97
 // backend vtable; the Metal leg is fake, fft_metal.m:257-268). Here the
-// fast accelerator path is Pallas/XLA on TPU; THIS is the genuine
+// fast accelerator path is XLA on the device; THIS is the genuine
 // host-native leg: an iterative table-twiddle radix-2 Cooley-Tukey in
 // C++ double precision. It serves as
 //   (1) an independent float64 oracle (a different codebase than both

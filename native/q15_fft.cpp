@@ -6,7 +6,7 @@
 // (:95-107), per-stage >>1 scaling to prevent overflow (:169-178),
 // inverse via conjugation (:187-207), and block-floating-point
 // normalization (:210-242). This is the embedded/host-side reduced
-// precision reference the TPU low-precision experiments are tested
+// precision reference the reduced-precision experiments are tested
 // against.
 
 #include <cmath>

@@ -3,7 +3,7 @@
 // The native streaming front-end for the realtime analyzer — the
 // reference's circular input buffer + hop trigger (realtime_analyzer.c:
 // 58-93) re-designed as a producer (audio/IO thread) feeding a consumer
-// (the host thread that batches hops and dispatches them to the TPU).
+// (the host thread that batches hops and dispatches them to the device).
 //
 // SPSC with acquire/release atomics: the producer only advances `head`,
 // the consumer only advances `tail`; capacity is a power of two so

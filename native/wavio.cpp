@@ -2,7 +2,7 @@
 //
 // The reference declares a WAV header struct but never parses files
 // (audio_spectrum.c:20-34); this implements the capability for real, as
-// the host-side data loader feeding the TPU analysis pipelines.
+// the host-side data loader feeding the device analysis pipelines.
 //
 // C ABI for ctypes: all functions return 0 / positive on success,
 // negative error codes on failure.

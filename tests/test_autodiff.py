@@ -1,5 +1,5 @@
 """Differentiability: transforms must be usable under jax.grad (the
-TPU-native capability the C reference cannot have — learned spectral
+capability the C reference cannot have — learned spectral
 filters, FFT layers in models)."""
 
 import jax
@@ -7,8 +7,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from fftlab.algos.split_stockham import fft_split, spectral_filter_split_fused
-from fftlab.core.types import Direction
-from fftlab.kernels.fft_vmem import pallas_fft_split_ad
+
 
 
 class TestEinsumPathGrad:
@@ -45,53 +44,3 @@ class TestEinsumPathGrad:
         fd = (float(loss(h.at[7].add(eps)))
               - float(loss(h.at[7].add(-eps)))) / (2 * eps)
         assert abs(fd - float(g[7])) < 5e-2 * max(abs(fd), 1.0)
-
-
-class TestPallasKernelGrad:
-    def test_forward_matches_plain(self):
-        rng = np.random.default_rng(2)
-        xr = rng.standard_normal((2, 1024)).astype(np.float32)
-        xi = rng.standard_normal((2, 1024)).astype(np.float32)
-        ar, ai = pallas_fft_split_ad(xr, xi, interpret=True)
-        want = np.fft.fft(xr.astype(np.float64) + 1j * xi.astype(np.float64))
-        got = np.asarray(ar) + 1j * np.asarray(ai)
-        assert np.max(np.abs(got - want)) < 1e-2
-
-    def test_vjp_matches_einsum_path_vjp(self):
-        rng = np.random.default_rng(3)
-        xr = rng.standard_normal((1024,)).astype(np.float32)
-        xi = rng.standard_normal((1024,)).astype(np.float32)
-        ct = (rng.standard_normal((1024,)).astype(np.float32),
-              rng.standard_normal((1024,)).astype(np.float32))
-
-        def f_pallas(a, b):
-            return pallas_fft_split_ad(a, b, Direction.FORWARD, True)
-
-        def f_ref(a, b):
-            return fft_split(a, b)
-
-        _, vjp_p = jax.vjp(f_pallas, xr, xi)
-        _, vjp_r = jax.vjp(f_ref, xr, xi)
-        gp = vjp_p(ct)
-        gr = vjp_r(ct)
-        for a, b in zip(gp, gr):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-3, atol=2e-1)
-
-    def test_inverse_vjp(self):
-        rng = np.random.default_rng(4)
-        xr = rng.standard_normal((1024,)).astype(np.float32)
-        xi = rng.standard_normal((1024,)).astype(np.float32)
-        ct = (np.ones(1024, np.float32), np.zeros(1024, np.float32))
-
-        def f_pallas(a, b):
-            return pallas_fft_split_ad(a, b, Direction.INVERSE, True)
-
-        def f_ref(a, b):
-            return fft_split(a, b, Direction.INVERSE)
-
-        _, vjp_p = jax.vjp(f_pallas, xr, xi)
-        _, vjp_r = jax.vjp(f_ref, xr, xi)
-        for a, b in zip(vjp_p(ct), vjp_r(ct)):
-            np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                       rtol=1e-3, atol=1e-3)

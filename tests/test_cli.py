@@ -6,6 +6,15 @@ import sys
 import pytest
 
 
+@pytest.fixture(autouse=True)
+def _no_persistent_cache(monkeypatch):
+    """The mains turn on the persistent compile cache; keep the test
+    process's compilations out of the checkout."""
+    import fftlab.utils.compile_cache as cc
+
+    monkeypatch.setattr(cc, "enable_compile_cache", lambda: str(cc.DEFAULT_DIR))
+
+
 def _run(module: str, argv: list[str]):
     import importlib
 

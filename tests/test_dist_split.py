@@ -1,6 +1,5 @@
 """Split-plane (complex-free) distributed pipelines: must match the
-complex versions exactly — these are the variants that run on TPU
-runtimes without complex dtype support."""
+complex versions exactly."""
 
 import jax.numpy as jnp
 import numpy as np

@@ -182,9 +182,8 @@ class TestAnalyzer:
         assert an.process(np.zeros(16)) is None
 
     def test_process_matches_host_framing_oracle(self):
-        """process() now frames on device (stft_split -> DMA kernel on
-        TPU); the magnitudes must equal the straightforward host
-        framing + windowed rfft it replaced."""
+        """process() frames on device (stft_split); the magnitudes must
+        equal the straightforward host framing + windowed rfft."""
         from fftlab.core.window import get_window
 
         cfg = AnalyzerConfig(fft_size=256, hop=128, averaging=1)

@@ -91,22 +91,6 @@ class TestSplitTuning:
         assert tune_split_leaf(10007, leaves=(64, 128),
                                persist=False) == DEFAULT_LEAF_SPLIT
 
-    def test_route_tune_records_and_dispatch_consults(self, monkeypatch):
-        # On CPU the only measurable route is einsum; the point is the
-        # loop: measure -> wisdom(kind='route') -> dispatch override.
-        from fftlab.plan import wisdom
-        from fftlab.plan.split_tuning import best_route, tune_split_route
-
-        wisdom.forget()
-        assert best_route(1024) is None
-        route = tune_split_route(1024, batch=1)
-        assert route == "einsum"
-        rec = wisdom.lookup(1024, "f32", kind="route")
-        assert rec["algorithm"] == "einsum"
-        assert rec["protocol"] == "slope"
-        assert "einsum" in rec["timings_ms"]
-        wisdom.forget()
-
     def test_run_route_rejects_unknown(self):
         import jax.numpy as jnp
         import pytest as _pytest
@@ -115,29 +99,6 @@ class TestSplitTuning:
         z = jnp.zeros((1, 128), jnp.float32)
         with _pytest.raises(ValueError):
             run_route("bogus", z, z, 1)
-
-    def test_run_route_3x_matches_oracle(self):
-        """The bf16_3x dispatch routes execute the same transform at
-        ~f32 accuracy (>=100 dB vs the f64 oracle — the suite's device
-        gate, checked here in interpret mode)."""
-        import jax.numpy as jnp
-
-        from fftlab.core.types import FORWARD
-        from fftlab.plan.dispatch import run_route
-
-        rng = np.random.default_rng(11)
-        n = 1 << 15
-        xr = jnp.asarray(rng.standard_normal((1, n)), jnp.float32)
-        xi = jnp.asarray(rng.standard_normal((1, n)), jnp.float32)
-        want = np.fft.fft(np.asarray(xr[0], np.float64)
-                          + 1j * np.asarray(xi[0], np.float64))
-        for route in ("resident_v4_3x", "resident_v6_3x"):
-            yr, yi = run_route(route, xr, xi, FORWARD)
-            got = (np.asarray(yr[0], np.float64)
-                   + 1j * np.asarray(yi[0], np.float64))
-            err = np.sum(np.abs(got - want) ** 2)
-            snr = 10 * np.log10(np.sum(np.abs(want) ** 2) / err)
-            assert snr > 100.0, (route, snr)
 
     def test_split_plan_estimate_and_execute(self):
         import jax.numpy as jnp
@@ -209,25 +170,24 @@ class TestSplitTuning:
         wisdom.forget()
         p = plan_dft_1d_split(512, flags=Flags.MEASURE, batch=1)
         assert p.algorithm == "einsum"
-        assert wisdom.lookup(512, "f32", kind="route") is not None
+        assert wisdom.lookup(512, "f32", kind="split") is not None
         wisdom.forget()
 
     def test_tune_persists_to_file(self, tmp_path, monkeypatch):
-        """tune_split_route(persist=True) writes the wisdom FILE so a
-        later process skips the measurement (regression: it only
-        updated the in-process table)."""
+        """tune_split_leaf(persist=True) writes the wisdom FILE so a
+        later process skips the measurement."""
         import json
 
         from fftlab.plan import wisdom
-        from fftlab.plan.split_tuning import tune_split_route
+        from fftlab.plan.split_tuning import tune_split_leaf
 
         p = tmp_path / "wisdom.json"
         monkeypatch.setenv("FFTLAB_WISDOM_PATH", str(p))
         wisdom.forget()
-        route = tune_split_route(256, batch=1)
-        assert route == "einsum"
+        leaf = tune_split_leaf(256, leaves=(64, 128), batch=1, iters=2)
         data = json.loads(p.read_text())
-        assert data["route:256:f32"]["algorithm"] == "einsum"
+        assert data["split:256:f32"]["algorithm"] == f"leaf={leaf}"
+        assert data["split:256:f32"]["platform"] == "cpu"
         wisdom.forget()
 
     def test_stale_wisdom_algorithm_falls_back(self):
@@ -256,65 +216,31 @@ class TestSplitTuning:
         with _pytest.raises(RuntimeError):
             plan_dft_1d_split(2048, flags=Flags.WISDOM_ONLY)
 
-    def test_split_plan_force_impl_outranks_measure(self, monkeypatch):
-        from fftlab.plan import wisdom
-        from fftlab.plan.api import plan_dft_1d_split
-        from fftlab.plan.flags import Flags
-
-        wisdom.forget()
-        monkeypatch.setenv("FFTLAB_FORCE_IMPL", "einsum")
-        p = plan_dft_1d_split(512, flags=Flags.MEASURE)
-        assert p.algorithm == "einsum"
-        # forced: no measurement ran, no wisdom written
-        assert wisdom.lookup(512, "f32", kind="route") is None
-
-    def test_route_wisdom_platform_filtered(self):
+    def test_leaf_wisdom_platform_filtered(self):
         # Wisdom measured on another platform (files travel via
         # export/import) must not be served here.
+        from fftlab.algos.split_stockham import DEFAULT_LEAF_SPLIT
         from fftlab.plan import wisdom
-        from fftlab.plan.split_tuning import best_route
+        from fftlab.plan.split_tuning import best_leaf
 
         wisdom.forget()
-        wisdom.record(1024, "f32", "einsum", 1.0, kind="route",
-                      extra={"platform": "tpu"})
-        assert best_route(1024) is None  # this test runs on cpu
-        wisdom.record(1024, "f32", "einsum", 1.0, kind="route",
+        wisdom.record(1024, "f32", "leaf=64", 1.0, kind="split",
+                      extra={"platform": "gpu"})
+        assert best_leaf(1024) == DEFAULT_LEAF_SPLIT  # this test runs on cpu
+        wisdom.record(1024, "f32", "leaf=64", 1.0, kind="split",
                       extra={"platform": "cpu"})
-        assert best_route(1024) == "einsum"
+        assert best_leaf(1024) == 64
         wisdom.forget()
 
-    def test_precision_reduced_route_never_default(self, monkeypatch):
-        # A _3x (bf16_3x, ~104 dB) route recorded by a sweep must not
-        # be served as the full-precision default — it maps back to
-        # its full-precision base unless FFTLAB_MXU_PRECISION=3x.
+    def test_stale_leaf_wisdom_ignored(self):
+        # A split entry that names no leaf must fall back to the default.
+        from fftlab.algos.split_stockham import DEFAULT_LEAF_SPLIT
         from fftlab.plan import wisdom
-        from fftlab.plan.split_tuning import _route_candidates, best_route
+        from fftlab.plan.split_tuning import best_leaf
 
         wisdom.forget()
-        monkeypatch.delenv("FFTLAB_MXU_PRECISION", raising=False)
-        wisdom.record(1 << 19, "f32", "resident_v4_3x", 1.0, kind="route",
-                      extra={"platform": "cpu"})
-        got = best_route(1 << 19)
-        # on CPU the candidate check may reject both; the invariant is
-        # that the _3x form is never returned without the opt-in
-        assert got != "resident_v4_3x"
-        if "resident_v4" in _route_candidates(1 << 19):
-            assert got == "resident_v4"
-        monkeypatch.setenv("FFTLAB_MXU_PRECISION", "3x")
-        got3 = best_route(1 << 19)
-        if "resident_v4_3x" in _route_candidates(1 << 19):
-            assert got3 == "resident_v4_3x"
-        wisdom.forget()
-
-    def test_stale_route_wisdom_ignored(self):
-        # A recorded route that is not measurable on this platform
-        # (pallas on CPU) must not be returned.
-        from fftlab.plan import wisdom
-        from fftlab.plan.split_tuning import best_route
-
-        wisdom.forget()
-        wisdom.record(8192, "f32", "pallas_vmem", 1.0, kind="route")
-        assert best_route(8192) is None
+        wisdom.record(8192, "f32", "renamed_route", 1.0, kind="split")
+        assert best_leaf(8192) == DEFAULT_LEAF_SPLIT
         wisdom.forget()
 
 
@@ -343,47 +269,12 @@ class TestEdgeSizes:
 
 
 class TestCapsDispatch:
-    """plan/dispatch.py: hardware caps actually drive kernel choice
-    (fft_auto.c:55-93 detect -> :136-172 select, consumed for real)."""
+    """plan/dispatch.py: one route-choice point and one executor."""
 
-    def _fake_caps(self, monkeypatch, platform):
-        import fftlab.plan.dispatch as dispatch
-        from fftlab.plan.hardware import HardwareCaps
+    def test_cpu_always_einsum(self):
+        from fftlab.plan.dispatch import ROUTES, select_split_impl
 
-        caps = HardwareCaps(
-            platform=platform, device_kind=platform, num_devices=1,
-            num_local_devices=1, memory_per_device_bytes=None,
-            supports_f64=platform == "cpu", has_mesh=False,
-        )
-        monkeypatch.setattr(dispatch, "detect_hardware", lambda: caps)
-
-    def test_tpu_routes_pallas_for_supported_sizes(self, monkeypatch):
-        from fftlab.plan.dispatch import select_split_impl
-
-        self._fake_caps(monkeypatch, "tpu")
-        assert select_split_impl(8192) == "pallas_vmem"
-        assert select_split_impl(16384) == "pallas_vmem"
-        # one-residency sizes route to resident_v6 (two r5 paired
-        # campaigns: v6_hi/v4_hi 0.9563 and 0.9553 — the transpose-free
-        # lane-contraction form); beyond its VMEM ceiling the two-pass
-        # kernel takes over
-        assert select_split_impl(1 << 15) == "resident_v6"
-        assert select_split_impl(1 << 17) == "resident_v6"
-        assert select_split_impl(1 << 20) == "resident_v6"
-        assert select_split_impl(1 << 21) == "fourstep_vmem"
-        # 2^22 crashes the backend compiler in the two-pass form at
-        # batch>1 (r4 wisdom sweep) — the three-pass kernel owns it
-        assert select_split_impl(1 << 22) == "threestep_vmem"
-        assert select_split_impl(1 << 24) == "threestep_vmem"
-        # below the measured crossover and unsupported sizes -> einsum
-        assert select_split_impl(4096) == "einsum"
-        assert select_split_impl(1000) == "einsum"
-        assert select_split_impl(1 << 27) == "einsum"
-
-    def test_cpu_always_einsum(self, monkeypatch):
-        from fftlab.plan.dispatch import select_split_impl
-
-        self._fake_caps(monkeypatch, "cpu")
+        assert ROUTES == ("einsum",)
         assert select_split_impl(8192) == "einsum"
 
     def test_spectral_filter_auto_matches_reference(self):
@@ -417,59 +308,8 @@ class TestCapsDispatch:
         np.testing.assert_allclose(np.asarray(got2_i), np.asarray(got_i),
                                    atol=1e-5)
 
-    def test_spectral_filter_auto_kill_switch(self, monkeypatch):
-        """FFTLAB_NO_PALLAS must keep the dispatcher off the kernel
-        routes even when caps report TPU (fft_gpu.c:49-97's runtime
-        backend fallback, as an env kill switch)."""
-        import jax.numpy as jnp
-        from fftlab.plan.dispatch import spectral_filter_auto
-
-        self._fake_caps(monkeypatch, "tpu")
-        monkeypatch.setenv("FFTLAB_NO_PALLAS", "1")
-        n = 1 << 15  # inside supported_large: would route to the kernel
-        rng = np.random.default_rng(12)
-        xr = jnp.asarray(rng.standard_normal((1, n)), jnp.float32)
-        xi = jnp.zeros((1, n), jnp.float32)
-        hr = np.ones(n, np.float32)
-        hi = np.zeros(n, np.float32)
-        yr, yi = spectral_filter_auto(xr, xi, hr, hi)  # H=1 -> identity
-        np.testing.assert_allclose(np.asarray(yr), np.asarray(xr),
-                                   atol=3e-4)
-
-    def test_measured_route_wisdom_outranks_heuristic(self, monkeypatch):
-        from fftlab.plan import wisdom
-        from fftlab.plan.dispatch import select_split_impl
-
-        self._fake_caps(monkeypatch, "tpu")
-        # heuristic says pallas_vmem at 8192; a measured 'einsum' win
-        # recorded in wisdom must override it
-        wisdom.forget()
-        wisdom.record(8192, "f32", "einsum", 0.5, kind="route")
-        assert select_split_impl(8192) == "einsum"
-        wisdom.forget()
-        assert select_split_impl(8192) == "pallas_vmem"
-
-    def test_env_override_wins(self, monkeypatch):
-        from fftlab.plan.dispatch import select_split_impl
-
-        self._fake_caps(monkeypatch, "tpu")
-        monkeypatch.setenv("FFTLAB_FORCE_IMPL", "einsum")
-        assert select_split_impl(8192) == "einsum"
-        monkeypatch.setenv("FFTLAB_FORCE_IMPL", "bogus")
-        import pytest as _pytest
-
-        with _pytest.raises(ValueError):
-            select_split_impl(8192)
-
-    def test_no_pallas_env(self, monkeypatch):
-        from fftlab.plan.dispatch import select_split_impl
-
-        self._fake_caps(monkeypatch, "tpu")
-        monkeypatch.setenv("FFTLAB_NO_PALLAS", "1")
-        assert select_split_impl(8192) == "einsum"
-
     def test_auto_route_matches_oracle(self):
-        # On CPU the auto route must run the einsum path and match numpy.
+        # The auto route must run the einsum path and match numpy.
         import jax.numpy as jnp
         import numpy as np
         from fftlab.plan.dispatch import fft_split_auto
@@ -481,37 +321,3 @@ class TestCapsDispatch:
         got = np.asarray(yr) + 1j * np.asarray(yi)
         want = np.fft.fft(np.asarray(xr) + 1j * np.asarray(xi), axis=-1)
         assert np.allclose(got, want, atol=1e-3)
-
-    def test_pipeline_route_preserves_batch_dims(self, monkeypatch):
-        # code-review r2: the pallas_pipeline route flattened batch dims
-        import jax.numpy as jnp
-        import numpy as np
-        from fftlab.plan.dispatch import fft_split_auto
-
-        self._fake_caps(monkeypatch, "cpu")  # einsum fallback path
-        monkeypatch.setenv("FFTLAB_FORCE_IMPL", "pallas_pipeline")
-        xr = jnp.asarray(
-            np.random.default_rng(0).standard_normal((2, 2, 1 << 15)),
-            jnp.float32,
-        )
-        # interpret-mode pipeline on CPU is slow; just check shapes via
-        # a small pow2 n that the pipeline accepts
-        try:
-            yr, yi = fft_split_auto(xr, jnp.zeros_like(xr))
-        except Exception:
-            import pytest as _p
-
-            _p.skip("pipeline route unavailable on this backend")
-        assert yr.shape == xr.shape
-
-    def test_kernels_enabled_kill_switch(self, monkeypatch):
-        from fftlab.plan.dispatch import kernels_enabled
-
-        monkeypatch.delenv("FFTLAB_NO_PALLAS", raising=False)
-        monkeypatch.delenv("FFTLAB_FORCE_IMPL", raising=False)
-        assert kernels_enabled()
-        monkeypatch.setenv("FFTLAB_NO_PALLAS", "1")
-        assert not kernels_enabled()
-        monkeypatch.delenv("FFTLAB_NO_PALLAS")
-        monkeypatch.setenv("FFTLAB_FORCE_IMPL", "einsum")
-        assert not kernels_enabled()

@@ -1,6 +1,6 @@
 """Property-based conformance matrix over (algorithm x size).
 
-TPU-native analog of the reference's test suite (tests/test_all.c:64-442):
+The analog of the reference's test suite (tests/test_all.c:64-442):
 the same seven properties — impulse, DC, linearity, Parseval, round-trip,
 known cosine pair, numerical stability — generic over the algorithm
 registry with per-algorithm size constraints (test_all.c:50-59), plus the
@@ -27,14 +27,9 @@ PRIME_SIZES = [7, 13, 97, 251]
 TOL_F64 = 1e-10
 TOL_F32 = 1e-5
 
-# Algorithms that compute in float32 regardless of input dtype (the
-# Pallas kernel casts to split-f32 planes); they get the reference's
-# float32 tolerance regime (simd_fft.c:362) instead of 1e-10.
-F32_ONLY = {"pallas_vmem"}
-
 
 def base_tol(name: str) -> float:
-    return 1e-6 if name in F32_ONLY else TOL_F64
+    return TOL_F64
 
 
 # Educational algorithms trace O(n) nodes — cap their test sizes.
@@ -151,7 +146,7 @@ def test_stability_10x_roundtrip(name):
     # small elements absorb roundoff proportional to the array norm), so
     # the meaningful stability criterion is scale-relative.
     rel = np.max(np.abs(y - x)) / np.max(np.abs(x))
-    assert rel < (5e-4 if name in F32_ONLY else 1e-6), rel
+    assert rel < 1e-6, rel
 
 
 @pytest.mark.parametrize("name,n", [(a, n) for a, n in CASES if n == 64])
